@@ -1,0 +1,160 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded through
+``ctypes``. One ``nvcc -shared`` call compiles all sources and links the
+library. The build runs at first
+use and again whenever a source (or the flag set) changes: the library's
+file name carries a hash of both. Nothing here runs at import time, so the
+package imports on machines without a GPU or a CUDA toolkit.
+
+No fast-math flags: ``--use_fast_math`` implies ``-ftz=true``, and flushing
+subnormals would change ``absmax`` and with it the stored checkpoint bytes.
+
+Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel, and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
+                            "dequantize": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_build_seconds: float | None = None
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+_SIGNATURES = {
+    # (x, nbytes, itemsize, block_bytes, n_blocks, out, old|NULL, diff|NULL, stream)
+    "spot_fingerprint": (_P, _I64, _I32, _I64, _I64, _P, _P, _P, _P),
+    # (x, n, dtype_code, partial, n_partial, out, stream)
+    "spot_absmax": (_P, _I64, _I32, _P, _I32, _P, _P),
+    # (x, n, dtype_code, inv, q, stream)
+    "spot_quantize": (_P, _I64, _I32, _F32, _P, _P),
+    # (q, n, scale, dtype_code, out, stream)
+    "spot_dequantize": (_P, _I64, _F32, _I32, _P, _P),
+}
+
+# element-type codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path) -> None:
+    tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
+           *map(str, _sources()), "-o", str(tmp)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stderr}")
+    # a build cache, not checkpoint data: a library lost to a crash is
+    # rebuilt from the sources, so the rename needs no fsync
+    os.replace(tmp, target)  # spotlint: ignore[SPOT001,SPOT002]
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, _build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA kernels need a GPU; none is available")
+        import time
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        target = BUILD_DIR / f"libspot_kernels-{_digest()}.so"
+        t0 = time.perf_counter()
+        # the build runs under the lock on purpose: every launch needs the
+        # library, and SpotTrainer builds it before its first step, so no
+        # save path waits here
+        with open(BUILD_DIR / "build.lock", "w") as lockf:  # spotlint: ignore[SPOT031]
+            fcntl.flock(lockf, fcntl.LOCK_EX)   # one build at a time across processes
+            if not target.exists():
+                _build(target)
+        _build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def build_seconds() -> float | None:
+    """Wall time the first ``library()`` call spent building/loading."""
+    return _build_seconds
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed with error {err}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, what: str, dtypes=None) -> None:
+    """Validate a kernel operand: CUDA, contiguous, one of ``dtypes``,
+    4-byte aligned."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"{what}: unsupported dtype {t.dtype}")
+    if t.data_ptr() % 4:
+        raise ValueError(f"{what}: data pointer must be 4-byte aligned")
