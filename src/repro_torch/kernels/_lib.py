@@ -2,11 +2,12 @@
 
 Every ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, loaded through
-``ctypes``. One ``nvcc -shared`` call compiles all sources and links the
-library. The build runs at first
-use and again whenever a source (or the flag set) changes: the library's
-file name carries a hash of both. Nothing here runs at import time, so the
-package imports on machines without a GPU or a CUDA toolkit.
+``ctypes``. The sources compile in parallel, one ``nvcc -c`` process each,
+all started together, and one ``nvcc -shared`` call links the library: the
+build takes as long as its slowest source, not their sum. The build runs at
+first use and again whenever a source (or the flag set) changes: the
+library's file name carries a hash of both. Nothing here runs at import
+time, so the package imports on machines without a GPU or a CUDA toolkit.
 
 No fast-math flags: ``--use_fast_math`` implies ``-ftz=true``, and flushing
 subnormals would change ``absmax`` and with it the stored checkpoint bytes.
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -36,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
-                            "dequantize": 0}
+                            "dequantize": 0, "flash_attention_fwd": 0,
+                            "decode_attention": 0, "rglru_scan": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,10 +58,24 @@ _SIGNATURES = {
     "spot_quantize": (_P, _I64, _I32, _F32, _P, _P),
     # (q, n, scale, dtype_code, out, stream)
     "spot_dequantize": (_P, _I64, _F32, _I32, _P, _P),
+    # (q, k, v, o, lse, B, Sq, Skv, H, KV, hd, dtype_code, causal, window,
+    #  scale, stream)
+    "spot_flash_attention_fwd": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                 _I32, _I32, _I32, _I32, _I32, _F32, _P),
+    # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
+    "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                              _I32, _I32, _F32, _P),
+    # (a, b, h, h_last, B, S, W, dtype_code, stream)
+    "spot_rglru_scan": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
 }
 
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FLOAT_DTYPES = tuple(DTYPE_CODES)            # the checkpoint kernels
+# the serving kernels' template instances: the dtypes and head dimensions
+# the models serve in, and no others
+SERVING_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -93,11 +110,26 @@ def _digest() -> str:
 
 def _build(target: Path) -> None:
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
-           *map(str, _sources()), "-o", str(tmp)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stderr}")
+    objdir = Path(tempfile.mkdtemp(prefix="obj-", dir=target.parent))
+    try:
+        objs = [objdir / f"{src.stem}.o" for src in _sources()]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for src, obj in zip(_sources(), objs)]
+        errors = []
+        for p in procs:
+            _out, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(err)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", *map(str, objs),
+                              "-o", str(tmp)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stderr}")
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     # a build cache, not checkpoint data: a library lost to a crash is
     # rebuilt from the sources, so the rename needs no fsync
     os.replace(tmp, target)  # spotlint: ignore[SPOT001,SPOT002]
@@ -158,3 +190,11 @@ def require_cuda(t: torch.Tensor, what: str, dtypes=None) -> None:
         raise TypeError(f"{what}: unsupported dtype {t.dtype}")
     if t.data_ptr() % 4:
         raise ValueError(f"{what}: data pointer must be 4-byte aligned")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if any input requires grad: the kernel has no backward yet, and
+    no autograd graph may record silently through its plain version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: inputs require grad, but this kernel has "
+                           "no backward yet; call it under torch.no_grad()")

@@ -18,7 +18,7 @@ from ...checkpoint.serialize import int8_scale_inv
 from .. import _lib
 from .ref import absmax_ref, dequantize_int8_ref, quantize_with_inv_ref
 
-FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FLOAT_DTYPES = _lib.FLOAT_DTYPES
 _MAX_PARTIALS = 1024
 
 

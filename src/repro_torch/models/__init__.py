@@ -1,5 +1,7 @@
 from .config import ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
-from .transformer import forward, init_params, plan_segments
+from .transformer import (decode_step, forward, init_cache, init_params,
+                          plan_segments, prefill)
 
-__all__ = ["ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig", "forward",
-           "init_params", "plan_segments"]
+__all__ = ["ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
+           "decode_step", "forward", "init_cache", "init_params",
+           "plan_segments", "prefill"]

@@ -47,7 +47,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.train, repro_torch.checkpoint, "
             "repro_torch.core, repro_torch.kernels.quantize, "
-            "repro_torch.kernels.fingerprint; "
+            "repro_torch.kernels.fingerprint, repro_torch.serve, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.rglru_scan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -82,6 +85,33 @@ def test_entry_points_refuse_without_a_gpu(no_gpu):
     tpl = state_template_on_device(state, "cpu")
     assert all(leaf.device.type == "cpu"
                for leaf in ser.flatten_state(tpl).values())
+
+
+def test_serve_entry_points_refuse_without_a_gpu(no_gpu):
+    from repro_torch.models import init_cache
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+    cfg = get_smoke_config("gemma3_1b")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_prefill(cfg, cache_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_decode_step(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        init_cache(cfg, 2, 16)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        generate(params, cfg, np.zeros((2, 4), np.int32), 2)
+    out = generate(params, cfg, np.zeros((2, 4), np.int32), 2, device="cpu")
+    assert tuple(out.shape) == (2, 2)
+
+
+def test_flash_attention_refuses_an_input_that_requires_grad():
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 8, 2, 32, requires_grad=True)
+    k = torch.randn(1, 8, 1, 32)
+    with pytest.raises(RuntimeError, match="requires? grad"):
+        flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="requires? grad"):
+        flash_attention(q.detach(), k.requires_grad_(True), k)
 
 
 def test_trainer_refuses_without_a_gpu(no_gpu, tmp_path):
