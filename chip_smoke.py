@@ -4,14 +4,17 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (the
 checkpoint kernels and the RG-LRU scan bit for bit, the attention kernels
-in float32 and bfloat16 within stated tolerances) and times both, then drives the Spot-on loop
-through the entry points a user calls, at phi3-mini's published width cut
-to a few layers, and serves gemma3-1b and recurrentgemma-2b at their full
-published configs with seeded weights:
+and the selective scan in float32 and bfloat16 within stated tolerances)
+and times both, then drives the Spot-on loop through the entry points a
+user calls, at phi3-mini's published width cut to a few layers and at
+gemma3-1b's cut to one period, trains gemma3-1b at its full published
+config, and serves gemma3-1b, recurrentgemma-2b and falcon-mamba-7b at
+their full published configs, all with seeded weights:
 
   kernels         fingerprint / absmax / quantize / dequantize vs plain;
-                  flash-attention forward, flash decode and the RG-LRU
-                  scan vs plain at the serving shapes
+                  flash-attention forward, flash decode, the selective scan
+                  and the RG-LRU scan vs plain at the serving shapes; the
+                  flash-attention backward (dkv, dq) at the training shapes
   delta           delta saves of the full-width state at 1% and 5% block
                   churn: exact d2h accounting, bit-identical restore
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
@@ -19,12 +22,19 @@ published configs with seeded weights:
   spot_loop_int8  the same on a quantize_moments store: the urgent save
                   quantizes the moments on the device, the restore widens
                   them there, bit-identical to the host dequantize
+  train_gemma3    8 make_train_step steps of gemma3-1b (26 layers, bf16,
+                  batch 2 x 2048), every attention layer through the flash
+                  forward, dkv and dq kernels: step time, tokens/s, peak
+                  memory, a profiled step; a float32 one-period copy's
+                  gradients on the card against the same step on the host
+  spot_loop_gemma3  the spot_loop contract at gemma3-1b's full width cut
+                  to one period (6 layers), sequences of 1024
   serve_gemma3,   batch 4, a 1984-token prompt, 64 greedy tokens through
-  serve_recurrentgemma  serve.make_prefill / make_decode_step (and
-                  serve.generate): prefill and decode tokens/s; a float32
-                  copy's decode logits against its teacher-forced logits;
-                  a mid-generation save and restore that must continue to
-                  bitwise the same tokens
+  serve_recurrentgemma,  serve.make_prefill / make_decode_step (and
+  serve_falcon_mamba  serve.generate): prefill and decode tokens/s; a
+                  float32 copy's decode logits against its teacher-forced
+                  logits; a mid-generation save and restore that must
+                  continue to bitwise the same tokens
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Prints the card's name and power
@@ -45,6 +55,7 @@ import functools
 import itertools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -67,6 +78,17 @@ STEPS = 8                      # train steps of each spot loop
 SERVE_B, PROMPT, NEW, CACHE_LEN = 4, 1984, 64, 2048   # serving phases
 SAVE_AT = 32                   # new tokens before the mid-generation save
 LOGIT_TOL = 2e-3               # float32 decode vs teacher-forced logits
+TRAIN_B, TRAIN_S = 2, 2048     # gemma3-1b training batch
+TRAIN_STEPS = 8
+LOOP_LAYERS, LOOP_S = 6, 1024  # spot_loop_gemma3: one period, its sequences
+GRAD_TOL = 2e-4                # backward kernels vs plain in float32, of
+                               # max(1, max|plain|): the reference's
+                               # gradient tolerance, 10 x 2e-5
+MODEL_GRAD_TOL = 1e-4          # card vs host gradients, of each leaf's max
+MODEL_LOSS_TOL = 1e-5          # card vs host loss, relative
+SCAN_TOL = 1e-4                # selective scan vs plain: the reference's
+SFU_PER_SM_CLOCK = 16          # exponentials per SM per clock (H100)
+H100_SMS = 132
 ATT_TOL = 2e-5                 # attention kernels vs plain in float32, abs;
                                # their float32 log-sum-exp, abs and rel
 BF16_RTOL = 2 ** -7            # in bfloat16 each output within one bf16 ulp
@@ -269,6 +291,8 @@ def phase_kernels(cfg, dev) -> dict:
     del embed, moment, cases, xn
     torch.cuda.empty_cache()
     out.update(serving_kernels(dev))
+    out.update(training_kernels(dev))
+    out.update(scan_kernel(dev))
     return out
 
 
@@ -426,6 +450,222 @@ def serving_kernels(dev) -> dict:
     return out
 
 
+def _grad_check(what, got, want) -> float:
+    """Hold a backward kernel's output against its plain version: float32
+    max|err| <= GRAD_TOL * max(1, max|want|); bfloat16 within two bf16 ulps
+    of each element (2 * 2**-7 relative) plus that limit. Returns
+    max|got - want|."""
+    import torch
+    need(got.shape == want.shape and got.dtype == want.dtype,
+         f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+         f"{want.dtype}")
+    g, w = got.double(), want.double()
+    floor = GRAD_TOL * max(1.0, float(w.abs().max()))
+    err = (g - w).abs()
+    lim = floor + (2 * BF16_RTOL * w.abs() if got.dtype == torch.bfloat16 else 0)
+    worst = float(err.max()) if err.numel() else 0.0
+    need(bool((err <= lim).all()),
+         f"{what}: differs from the plain version (max err {worst}, limit "
+         f"{GRAD_TOL} of max(1, max|plain|) = {floor}"
+         + (", + 2 bf16 ulps)" if got.dtype == torch.bfloat16 else ")"))
+    return worst
+
+
+def _pairs(S: int, window: int) -> int:
+    """Unmasked (q, k) pairs of a causal, optionally windowed S x S block."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def training_kernels(dev) -> dict:
+    """The flash-attention backward kernels against their plain versions at
+    gemma3-1b's training shapes (bf16, and float32 on the same values
+    widened), plus correctness cases: phi3-mini's head dim 96, a padded
+    sequence and GQA through the full ``flash_attention_bwd``. Times of
+    each pass, its plain version and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_dkv_ref,
+                                                     attention_dq_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd,
+                                                     flash_attention_dkv,
+                                                     flash_attention_dq,
+                                                     flash_attention_fwd)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 4, 1, 256        # gemma3-1b train
+    q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(bf)
+            for _ in range(2))
+    qpos = torch.arange(S, device=dev)
+    dkv_cases, dq_cases = {}, {}
+    for window in (512, 0):
+        name = f"window_{window}" if window else "global"
+        o, lse = flash_attention_fwd(q, k, v, True, window)
+        dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, dsum)
+        dk, dv = flash_attention_dkv(*args, True, window)
+        wk, wv = attention_dkv_ref(*args, causal=True, window=window)
+        err_dkv = max(_grad_check(f"dkv {name} dk", dk, wk),
+                      _grad_check(f"dkv {name} dv", dv, wv))
+        del dk, dv, wk, wv
+        dq = flash_attention_dq(*args, True, window)
+        err_dq = _grad_check(f"dq {name}", dq,
+                             attention_dq_ref(*args, causal=True, window=window))
+        del dq
+        # float32 on the same values widened: no bf16 rounding to hide in
+        a32 = tuple(t.to(f32) for t in (q, k, v, do))
+        o32, lse32 = flash_attention_fwd(*a32[:3], True, window)
+        ds32 = (a32[3] * o32).sum(-1).transpose(1, 2).contiguous()
+        args32 = (*a32, lse32, ds32)
+        f32_err_dkv = max(
+            _grad_check(f"dkv {name} float32 {n}", x, y)
+            for n, x, y in zip(("dk", "dv"),
+                               flash_attention_dkv(*args32, True, window),
+                               attention_dkv_ref(*args32, causal=True,
+                                                 window=window)))
+        f32_err_dq = _grad_check(
+            f"dq {name} float32", flash_attention_dq(*args32, True, window),
+            attention_dq_ref(*args32, causal=True, window=window))
+        del a32, o32, lse32, ds32, args32
+        # SDPA's backward alone, at the same shapes: the library yardstick
+        # of both passes together
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        if window:
+            band = ((qpos[None, :] <= qpos[:, None])
+                    & (qpos[None, :] > qpos[:, None] - window))
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                 enable_gqa=True)
+        else:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt, dot
+        pairs = B * H * _pairs(S, window)
+        in_bytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2
+                    + lse.numel() * 4 * 2)                # q, do, k, v, lse, D
+        common = dict(library_ms=lib_ms, shape=[B, S, H, KV, hd],
+                      window=window, dtype="bfloat16", tol=GRAD_TOL,
+                      bf16_ulps=2, library="SDPA backward (both passes)")
+        dkv_cases[name] = dict(
+            ms=time_ms(lambda: flash_attention_dkv(*args, True, window)),
+            plain_ms=time_ms(lambda: attention_dkv_ref(
+                *args, causal=True, window=window), reps=3),
+            max_abs_err=err_dkv, f32_max_abs_err=f32_err_dkv,
+            # S, dP, dV, dK: four products, 8 FLOPs per pair and head dim;
+            # dk, dv written per query head in float32
+            bound=bound(in_bytes + B * S * H * hd * 4 * 2, pairs * hd * 8,
+                        BF16_FLOPS_PER_S), **common)
+        dq_cases[name] = dict(
+            ms=time_ms(lambda: flash_attention_dq(*args, True, window)),
+            plain_ms=time_ms(lambda: attention_dq_ref(
+                *args, causal=True, window=window), reps=3),
+            max_abs_err=err_dq, f32_max_abs_err=f32_err_dq,
+            # S, dP, dQ: three products, 6 FLOPs per pair and head dim
+            bound=bound(in_bytes + q.numel() * 2, pairs * hd * 6,
+                        BF16_FLOPS_PER_S), **common)
+        del o, lse, dsum, args
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # the whole backward (padding, both passes, the group sums) on more
+    # shapes: phi3-mini's head dim 96, a padded sequence, GQA and a window
+    extra = {}
+    for name, (Bx, Sx, Hx, KVx, hdx, win, dt) in {
+            "phi3_hd96": (2, 256, 32, 32, 96, 0, bf),
+            "phi3_hd96_f32": (1, 128, 32, 32, 96, 0, f32),
+            "padded": (1, 200, 4, 1, 256, 0, bf),
+            "gqa_window": (2, 320, 8, 2, 128, 100, f32)}.items():
+        qx, dox = (torch.randn((Bx, Sx, Hx, hdx), generator=g, device=dev).to(dt)
+                   for _ in range(2))
+        kx, vx = (torch.randn((Bx, Sx, KVx, hdx), generator=g, device=dev).to(dt)
+                  for _ in range(2))
+        ox, lsex = flash_attention_fwd(qx, kx, vx, True, win)
+        _att_check(f"flash forward {name}", ox,
+                   attention_ref(qx, kx, vx, causal=True, window=win)[0])
+        got = flash_attention_bwd(qx, kx, vx, ox, lsex, dox, True, win)
+        want = attention_bwd_ref(qx, kx, vx, ox, lsex, dox, causal=True,
+                                 window=win)
+        extra[name] = max(_grad_check(f"backward {name} {n}", a, b)
+                          for n, a, b in zip(("dq", "dk", "dv"), got, want))
+    return {"flash_attention_dkv": dict(dkv_cases["global"], cases=dkv_cases,
+                                        checks=extra),
+            "flash_attention_dq": dict(dq_cases["global"], cases=dq_cases,
+                                       checks=extra)}
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30)
+    try:
+        return float(res.stdout.strip().splitlines()[0])
+    except (IndexError, ValueError):
+        raise PhaseError(f"nvidia-smi gave no SM clock: {res.stdout!r} "
+                         f"{res.stderr!r}") from None
+
+
+def scan_kernel(dev) -> dict:
+    """The selective scan against its plain version at falcon-mamba-7b's
+    prefill shape (bf16, and float32 on the same values widened)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    B, S, DI, N = SERVE_B, PROMPT, 8192, 16
+    u = torch.randn((B, S, DI), generator=g, device=dev).to(torch.bfloat16)
+    dt = F.softplus(torch.randn((B, S, DI), generator=g, device=dev) - 2.0
+                    ).to(torch.bfloat16)
+    # the model's A = -exp(A_log) = -(1..N) and D = 1; B, C in the model dtype
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(DI, N)
+    A = A.contiguous()
+    D = torch.ones(DI, device=dev)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    args = (u, dt, A, Bm, Cm, D)
+    y, h = ssm_scan(*args)
+    yr, hr = ssm_scan_ref(*args)
+    err = max_abs_err(y, yr)
+    need(torch.allclose(y.float(), yr.float(), atol=SCAN_TOL, rtol=BF16_RTOL),
+         f"ssm_scan bf16 y: max err {err} (one ulp + {SCAN_TOL})")
+    h_err = max_abs_err(h, hr)
+    need(h_err <= SCAN_TOL * max(1.0, float(hr.abs().max())),
+         f"ssm_scan h_last: max err {h_err}")
+    a32 = tuple(t.float() for t in args)
+    y32, h32 = ssm_scan(*a32)
+    yr32, hr32 = ssm_scan_ref(*a32)
+    f32_err = max(max_abs_err(y32, yr32), max_abs_err(h32, hr32))
+    need(f32_err <= SCAN_TOL, f"ssm_scan float32: max err {f32_err}")
+    del a32, y32, h32, yr32, hr32, yr, hr
+    clock = sm_clock_mhz()
+    exps = B * S * DI * N
+    nbytes = (u.numel() * 2 * 3 + (Bm.numel() + Cm.numel()) * 4
+              + (A.numel() + D.numel() + h.numel()) * 4)  # u, dt, y; B, C f32
+    out = {"ssm_scan": dict(
+        ms=time_ms(lambda: ssm_scan(*args)),
+        plain_ms=time_ms(lambda: ssm_scan_ref(*args), reps=2, runs=3,
+                         warmup=1),
+        library_ms=None, max_abs_err=err, h_last_max_abs_err=h_err,
+        f32_max_abs_err=f32_err,
+        # exponentials over the special-function units at the card's clock
+        bound=bound(nbytes, exps, H100_SMS * SFU_PER_SM_CLOCK * clock * 1e6),
+        sm_clock_mhz=clock, tol=SCAN_TOL, bf16_rtol=BF16_RTOL,
+        shape=[B, S, DI, N], dtype="bfloat16")}
+    del u, dt, Bm, Cm, y, h, args
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase: delta
 # ---------------------------------------------------------------------------
@@ -543,7 +783,8 @@ def phase_delta(cfg, dev, workdir) -> dict:
 # phase: spot loops
 # ---------------------------------------------------------------------------
 
-def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False):
+def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
+             seq_len=64):
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.core import (AZURE_D8S_V3, CheckpointPolicy,
                                   CostAccountant, NoEviction, PeriodicEviction,
@@ -577,7 +818,7 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False):
               else CheckpointPolicy.off())
     coord = RecordingCoordinator(store, policy, clock, time_model=TimeModel())
     job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=steps, warmup_steps=2),
-                   total_steps=steps, n_stages=2, batch=2, seq_len=64)
+                   total_steps=steps, n_stages=2, batch=2, seq_len=seq_len)
     trainer = SpotTrainer(job, coord, pool, clock, step_time_s=10.0,
                           max_sessions=10, device=dev)
     t0 = time.perf_counter()
@@ -597,15 +838,17 @@ def _loop_summary(rep, wall_s) -> dict:
             "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s}
 
 
-def phase_spot_loop(cfg, dev, workdir, steps, launches) -> dict:
+def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
+                    seq_len=64) -> dict:
     import torch
     from repro_torch.kernels import _lib
     base, _c, base_wall = run_loop(cfg, dev, workdir / "base", mode="off",
-                                   evict_s=None, steps=steps)
+                                   evict_s=None, steps=steps, seq_len=seq_len)
+    shutil.rmtree(workdir / "base", ignore_errors=True)
     _lib.reset_launches()
     ev, _c, ev_wall = run_loop(cfg, dev, workdir / "ev", mode="transparent",
-                               evict_s=55.0, steps=steps)
-    launches["spot_loop"] = dict(_lib.LAUNCHES)
+                               evict_s=55.0, steps=steps, seq_len=seq_len)
+    launches[name] = dict(_lib.LAUNCHES)
     shutil.rmtree(workdir / "ev", ignore_errors=True)
     res = {"uninterrupted": _loop_summary(base, base_wall),
            "evicted": _loop_summary(ev, ev_wall)}
@@ -616,8 +859,15 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches) -> dict:
     need(math.isfinite(base.final_loss), "non-finite loss")
     need(ev.final_loss == base.final_loss,
          f"final loss {ev.final_loss!r} != uninterrupted {base.final_loss!r}")
-    need(launches["spot_loop"]["fingerprint"] > 0,
+    need(launches[name]["fingerprint"] > 0,
          "periodic delta saves launched no fingerprint kernel")
+    for k in ("flash_attention_fwd", "flash_attention_dkv",
+              "flash_attention_dq"):
+        need(launches[name][k] > 0, f"the train steps launched no {k} kernel")
+    res["config"] = {"name": cfg.name, "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+                     "batch": 2, "seq_len": seq_len}
+    res["launches"] = launches[name]
     torch.cuda.empty_cache()
     return res
 
@@ -662,6 +912,115 @@ def phase_spot_loop_int8(cfg, dev, workdir, steps, launches) -> dict:
         n_mom += 1
     need(n_mom > 0, "no moments compared")
     res["moments_compared"] = n_mom
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase: training gemma3-1b
+# ---------------------------------------------------------------------------
+
+def phase_train_gemma3(dev, card, launches) -> dict:
+    """make_train_step on gemma3-1b at its full published config; then one
+    float32 one-period copy's loss and gradients on the card against the
+    same step on the host (the port's plain versions)."""
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, loss_and_grads,
+                                   make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma3_1b")
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    opt = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=2)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, opt)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def batch():
+        tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                            generator=g, device=dev, dtype=torch.int32)
+        return {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
+    step(state, batch())        # warm-up (cuBLAS handles), outside the count
+    torch.cuda.synchronize()
+
+    # the main path: counts reset just before, read just after
+    _lib.reset_launches()
+    step_s, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        b = batch()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))          # synchronises
+        step_s.append(time.perf_counter() - t0)
+    launches["train_gemma3"] = counted = dict(_lib.LAUNCHES)
+    for k in ("flash_attention_fwd", "flash_attention_dkv",
+              "flash_attention_dq"):
+        need(counted[k] == n_attn * TRAIN_STEPS,
+             f"train_gemma3: {counted[k]} {k} launches, expected "
+             f"{n_attn} per step")
+    need(all(math.isfinite(x) for x in losses), "train_gemma3: non-finite loss")
+    med = statistics.median(step_s)
+    res = {"card": card,
+           "config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+                      "window": cfg.window, "dtype": cfg.dtype,
+                      "params": cfg.param_count()},
+           "batch": TRAIN_B, "seq_len": TRAIN_S, "steps": TRAIN_STEPS,
+           "step_s": step_s, "median_step_s": med,
+           "tokens_per_s": TRAIN_B * TRAIN_S / med, "losses": losses,
+           "launches": counted,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    b = batch()
+    res["step_profile"] = _profile(lambda: step(state, b), 1)
+    del state, b
+    torch.cuda.empty_cache()
+
+    # model-level check: the same float32 step on the card and on the host
+    cfg32 = cfg.scaled(n_layers=len(cfg.block_pattern), dtype="float32")
+    params = init_params(cfg32, seed=1, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (1, LOOP_S + 1), generator=g,
+                        device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    loss_d, _, grads_d = loss_and_grads(cfg32, params, tok[:, :-1], tok[:, 1:])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    params_h = ser.unflatten_like(params, {
+        n: t.cpu() for n, t in ser.flatten_state(params).items()})
+    del params
+    torch.cuda.empty_cache()
+    tok_h = tok.cpu()
+    t0 = time.perf_counter()
+    loss_h, _, grads_h = loss_and_grads(cfg32, params_h, tok_h[:, :-1],
+                                        tok_h[:, 1:])
+    host_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+    need(loss_rel <= MODEL_LOSS_TOL,
+         f"train_gemma3: card loss {float(loss_d)} vs host {float(loss_h)}")
+    worst, worst_leaf = 0.0, None
+    gh = ser.flatten_state(grads_h)
+    for n, gd in ser.flatten_state(grads_d).items():
+        scale = max(float(gh[n].abs().max()), 1e-30)
+        rel = float((gd.cpu() - gh[n]).abs().max()) / scale
+        if rel > worst:
+            worst, worst_leaf = rel, n
+    need(worst <= MODEL_GRAD_TOL,
+         f"train_gemma3: gradient {worst_leaf} differs card vs host by "
+         f"{worst} of its largest element")
+    res["model_check"] = {
+        "config": {"n_layers": cfg32.n_layers, "dtype": "float32",
+                   "batch": 1, "seq_len": LOOP_S},
+        "loss_card": float(loss_d), "loss_host": float(loss_h),
+        "loss_rel_err": loss_rel, "loss_tol": MODEL_LOSS_TOL,
+        "max_leaf_rel_err": worst, "worst_leaf": worst_leaf,
+        "leaf_tol": MODEL_GRAD_TOL, "leaves": len(gh),
+        "card_s": card_s, "host_s": host_s}
+    del grads_d, grads_h, params_h
     torch.cuda.empty_cache()
     return res
 
@@ -744,6 +1103,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("global", "local") for k in kinds)
     n_rec = sum(k == "rglru" for k in kinds)
+    n_mamba = sum(k == "mamba" for k in kinds)
     params = init_params(cfg, seed=0, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -774,7 +1134,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
            "launches": counted,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     want = {"flash_attention_fwd": n_attn, "rglru_scan": n_rec,
-            "decode_attention": n_attn * (NEW - 1)}
+            "ssm_scan": n_mamba, "decode_attention": n_attn * (NEW - 1)}
     for name, n in want.items():
         need(counted[name] == n,
              f"{arch}: {counted[name]} {name} launches, expected {n}")
@@ -799,6 +1159,8 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     res["save_bytes"] = sum(t.numel() * t.element_size()
                             for t in ser.flatten_state(mid).values()
                             if isinstance(t, torch.Tensor))
+    res["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in ser.flatten_state(mid["caches"]).values())
     res["save_new_bytes"] = info.new_bytes
     template = state_template_on_device(mid, dev)
     del mid
@@ -819,12 +1181,16 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     res["resumed_tokens_identical"] = True
     del state, caches, gen
 
-    # decode against teacher forcing, on a float32 copy at the same shapes
+    # decode against teacher forcing, on a float32 copy at the same shapes:
+    # the bf16 weights leave the card before their float32 copy lands
     cfg32 = cfg.scaled(dtype="float32")
-    params32 = ser.unflatten_like(params, {
-        n: t.to(torch.float32) for n, t in ser.flatten_state(params).items()})
+    host = {n: t.cpu() for n, t in ser.flatten_state(params).items()}
+    template = state_template_on_device(params, dev)
     del params
     torch.cuda.empty_cache()
+    params32 = ser.unflatten_like(template, {
+        n: t.to(dev).to(torch.float32) for n, t in host.items()})
+    del host, template
     tok32, _, _, _, logits32 = _decode_run(
         params32, cfg32, make_prefill(cfg32, cache_len=CACHE_LEN, device=dev),
         make_decode_step(cfg32, device=dev), prompt, keep_logits=True)
@@ -851,6 +1217,31 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
 
 # ---------------------------------------------------------------------------
 
+def ptxas_summary(report: dict) -> dict:
+    """``ptxas -v``'s registers and spill bytes per kernel instance, under
+    short names: kernel<dtype,template ints>."""
+    out = {}
+    for mangled, info in report.items():
+        # the kernel's name follows its length (the tail of a digit run),
+        # and its template arguments open with "I"; the shortest such name
+        names = []
+        for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+            for i in range(len(m.group())):
+                n = int(m.group()[i:])
+                name = mangled[m.end():m.end() + n]
+                if name.endswith("_kernel") and \
+                        mangled[m.end() + n:m.end() + n + 1] == "I":
+                    names.append(name)
+        if not names:
+            continue
+        names.sort(key=len)
+        dtype = "bf16" if "__nv_bfloat16" in mangled else \
+            "f16" if "6__half" in mangled else "f32"
+        ints = re.findall(r"Li(\d+)E", mangled)
+        out[f"{names[0]}<{','.join([dtype, *ints])}>"] = info
+    return out
+
+
 KERNELS = {
     "fingerprint": ("src/repro_torch/kernels/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint/fingerprint.py:30"),
@@ -862,8 +1253,14 @@ KERNELS = {
                    "src/repro/kernels/quantize/quantize.py:62"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:65"),
+    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:156"),
+    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                           "src/repro/kernels/flash_attention/flash_attention.py:201"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/decode_attention.py:30"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/ssm_scan.py:36"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/rglru_scan.py:31"),
 }
@@ -889,9 +1286,12 @@ def main() -> int:
     print(card, flush=True)          # name, power limit: nvidia-smi's own line
     _lib.library()
     print(f"kernel build+load: {_lib.build_seconds():.1f} s", flush=True)
+    ptxas = ptxas_summary(_lib.ptxas_report())
+    print(json.dumps({"ptxas": ptxas}), flush=True)
     cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)
     launches: dict[str, dict] = {}
     results: dict = {"card": card, "build_s": _lib.build_seconds(),
+                     "ptxas": ptxas,
                      "config": {"name": cfg.name, "n_layers": cfg.n_layers,
                                 "d_model": cfg.d_model}}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -906,10 +1306,17 @@ def main() -> int:
                                                  launches),
             "spot_loop_int8": lambda: phase_spot_loop_int8(
                 cfg, dev, workdir, STEPS, launches),
+            "train_gemma3": lambda: phase_train_gemma3(dev, card, launches),
+            "spot_loop_gemma3": lambda: phase_spot_loop(
+                get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
+                workdir / "gemma3", STEPS, launches, name="spot_loop_gemma3",
+                seq_len=LOOP_S),
             "serve_gemma3": lambda: phase_serve("gemma3_1b", dev, workdir,
                                                 card, launches),
             "serve_recurrentgemma": lambda: phase_serve(
                 "recurrentgemma_2b", dev, workdir, card, launches),
+            "serve_falcon_mamba": lambda: phase_serve(
+                "falcon_mamba_7b", dev, workdir, card, launches),
         }
         for phase, run in phases.items():
             t0 = time.perf_counter()

@@ -3,9 +3,9 @@
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
 The port runs the dense global-attention family, gemma3 (local and global
-attention) and recurrentgemma (RG-LRU and local attention) so far; the other
-architectures of the reference registry come with their slices, and asking
-for one raises.
+attention), recurrentgemma (RG-LRU and local attention) and falcon-mamba
+(Mamba-1) so far; the other architectures of the reference registry come
+with their slices, and asking for one raises.
 """
 
 from __future__ import annotations
@@ -14,12 +14,13 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCH_IDS = ("phi3_mini_3p8b", "gemma3_1b", "recurrentgemma_2b")
+ARCH_IDS = ("phi3_mini_3p8b", "gemma3_1b", "recurrentgemma_2b",
+            "falcon_mamba_7b")
 
 # architectures the reference registry knows that this port does not run yet
 PENDING_ARCH_IDS = (
     "musicgen_medium", "command_r_plus_104b", "minitron_8b",
-    "deepseek_moe_16b", "grok1_314b", "falcon_mamba_7b", "llava_next_34b",
+    "deepseek_moe_16b", "grok1_314b", "llava_next_34b",
 )
 
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

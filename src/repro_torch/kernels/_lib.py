@@ -23,6 +23,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,11 +36,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
                             "dequantize": 0, "flash_attention_fwd": 0,
-                            "decode_attention": 0, "rglru_scan": 0}
+                            "flash_attention_dkv": 0, "flash_attention_dq": 0,
+                            "decode_attention": 0, "ssm_scan": 0,
+                            "rglru_scan": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -62,20 +65,34 @@ _SIGNATURES = {
     #  scale, stream)
     "spot_flash_attention_fwd": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _I32, _I32, _F32, _P),
+    # (q, k, v, do, lse, dsum, dk, dv, B, Sq, Skv, H, KV, hd, dtype_code,
+    #  causal, window, scale, stream)
+    "spot_flash_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                                 _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                                 _F32, _P),
+    # (q, k, v, do, lse, dsum, dq, B, Sq, Skv, H, KV, hd, dtype_code, causal,
+    #  window, scale, stream)
+    "spot_flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P),
     # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
     "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _F32, _P),
     # (a, b, h, h_last, B, S, W, dtype_code, stream)
     "spot_rglru_scan": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
+    # (u, dt, A, B, C, D, y, h_last, B, S, DI, N, dtype_code, stream)
+    "spot_ssm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                      _I32, _P),
 }
 
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 FLOAT_DTYPES = tuple(DTYPE_CODES)            # the checkpoint kernels
-# the serving kernels' template instances: the dtypes and head dimensions
-# the models serve in, and no others
+# the model kernels' template instances: the dtypes and head dimensions the
+# models serve and train in, and no others (phi3-mini trains at head dim 96)
 SERVING_DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)          # flash attention forward and backward
+DECODE_HEAD_DIMS = (64, 128, 256)       # flash decode
+SSM_STATES = 16                         # the selective scan's d_state
 
 
 def reset_launches() -> None:
@@ -117,13 +134,16 @@ def _build(target: Path) -> None:
             [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
              str(obj)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for src, obj in zip(_sources(), objs)]
-        errors = []
+        errors, logs = [], []
         for p in procs:
             _out, err = p.communicate()
+            logs.append(err)
             if p.returncode != 0:
                 errors.append(err)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        # ptxas -v: each kernel's registers, shared memory and spills
+        target.with_suffix(".ptxas.log").write_text("\n".join(logs))
         res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", *map(str, objs),
                               "-o", str(tmp)], capture_output=True, text=True)
         if res.returncode != 0:
@@ -169,6 +189,30 @@ def build_seconds() -> float | None:
     return _build_seconds
 
 
+def ptxas_report() -> dict[str, dict[str, int]]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from the ``ptxas -v`` output of the library's build."""
+    log = BUILD_DIR / f"libspot_kernels-{_digest()}.ptxas.log"
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch reported a CUDA error (``cudaGetLastError``)."""
     if err != 0:
@@ -193,8 +237,10 @@ def require_cuda(t: torch.Tensor, what: str, dtypes=None) -> None:
 
 
 def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
-    """Raise if any input requires grad: the kernel has no backward yet, and
-    no autograd graph may record silently through its plain version."""
+    """Raise if any input requires grad: a raw kernel entry point records no
+    backward, and no autograd graph may record silently through its plain
+    version (the differentiable wrappers call it with grad disabled)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what}: inputs require grad, but this kernel has "
-                           "no backward yet; call it under torch.no_grad()")
+        raise RuntimeError(f"{what}: inputs require grad, but this entry point "
+                           "records no backward; call it under "
+                           "torch.no_grad() or use its differentiable wrapper")

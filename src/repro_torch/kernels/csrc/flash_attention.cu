@@ -28,9 +28,9 @@
 // row whose sum is 0 divides by 1, as the reference does.
 //
 // Shapes: q (B, Sq, H, hd), k/v (B, Skv, KV, hd), o like q, lse (B, H, Sq)
-// float32; Sq and Skv are multiples of 64 (the wrapper pads), hd is 64, 128
-// or 256, H % KV == 0 (query head h reads KV head h / (H / KV)). Built for
-// float32 and bfloat16, the dtypes the models serve in.
+// float32; Sq and Skv are multiples of 64 (the wrapper pads), hd is 64, 96,
+// 128 or 256, H % KV == 0 (query head h reads KV head h / (H / KV)). Built
+// for float32 and bfloat16, the dtypes the models serve and train in.
 #include "common.cuh"
 
 namespace {
@@ -223,6 +223,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 int window, float scale, cudaStream_t s) {
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
+    case 96: return launch<T, 96>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

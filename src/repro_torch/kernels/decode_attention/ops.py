@@ -51,8 +51,9 @@ def _launch(q, k, v, valid_len):
     _, S, KV, _ = k.shape
     if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
         raise TypeError("flash_decode: q, k, v must share dtype and device")
-    if hd not in _lib.HEAD_DIMS:
-        raise ValueError(f"flash_decode: head_dim {hd} not in {_lib.HEAD_DIMS}")
+    if hd not in _lib.DECODE_HEAD_DIMS:
+        raise ValueError(f"flash_decode: head_dim {hd} not in "
+                         f"{_lib.DECODE_HEAD_DIMS}")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

@@ -1,6 +1,12 @@
 """RG-LRU scan: the CUDA kernel for CUDA tensors, the plain version for CPU
-tensors. Forward only: an input that requires grad raises. A CUDA tensor
-always launches the kernel or raises; there is no fallback."""
+tensors.
+
+``rglru_scan`` is the raw kernel (h and the last state) and refuses inputs
+that require grad. ``lru_scan`` is differentiable: an ``autograd.Function``
+whose forward is ``rglru_scan`` and whose backward differentiates the plain
+version, as the reference's ``custom_vjp`` does (``kernels/rglru_scan/
+ops.py``). A CUDA tensor always launches the kernel or raises; there is no
+fallback."""
 
 from __future__ import annotations
 
@@ -34,3 +40,27 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor
     _lib.check(err, "rglru_scan")
     _lib.LAUNCHES["rglru_scan"] += 1
     return h, h_last
+
+
+class _LruScan(torch.autograd.Function):
+    """Forward through ``rglru_scan``; backward through autograd of the plain
+    version on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return rglru_scan(a, b)[0]
+
+    @staticmethod
+    def backward(ctx, dh):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            h = rglru_scan_ref(*inputs)[0]
+        grads = torch.autograd.grad(h, inputs, dh)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Differentiable RG-LRU scan: h (B,S,W) in a's dtype."""
+    return _LruScan.apply(a, b)

@@ -5,9 +5,9 @@ depthwise causal convolution of the recurrent blocks.
 Softmax/normalization math runs in float32 whatever the parameter dtype, as
 in the reference (``models/layers.py``); the attention scores are float32
 products of the stored q/k values, with the reference's finite ``NEG_INF``
-mask bias. ``attention`` here is the plain version the training forward
-uses; the serving path (``transformer.prefill`` / ``decode_step``) calls the
-flash kernels instead.
+mask bias. ``attention`` here is the plain counterpart of the reference's
+(the reference model trains through it); the port's model calls the flash
+kernels instead, on both the training and the serving path.
 
 The cache updates are functional, as the reference's: each returns new
 tensors and leaves the cache it was given unchanged, so a serving state

@@ -8,9 +8,11 @@ Recurrence (per channel):
 
 The full recurrent block is: x -> [linear -> conv1d -> RG-LRU] ⊙ gelu(linear)
 -> linear, mirroring Griffin's temporal-mixing block. The sequence path runs
-the recurrence through ``kernels.rglru_scan`` (the CUDA kernel on the card,
-its plain sequential version on the CPU) where the reference runs an
-associative scan; decode carries (conv window, h) — O(1) state.
+the recurrence through ``kernels.rglru_scan.lru_scan`` (the CUDA kernel on
+the card, its plain sequential version on the CPU; gradients through the
+plain version, as the reference's kernel wrapper has them) where the
+reference runs an associative scan; decode carries (conv window, h) — O(1)
+state.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rglru_scan import rglru_scan
+from ..kernels.rglru_scan import lru_scan
 from .config import RGLRUConfig
 from .layers import causal_conv1d, conv_state_update
 
@@ -48,10 +50,11 @@ def _gates(x: torch.Tensor, w: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 def rg_lru(x: torch.Tensor, w: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Sequence RG-LRU from a zero state. x: (B,S,W) -> (y (B,S,W),
-    h_last (B,W) float32)."""
+    h_last (B,W) float32). The gates are float32, so the scan's float32
+    h[:, -1] is its last state."""
     a, bx = _gates(x, w)
-    h, h_last = rglru_scan(a, bx)
-    return h.to(x.dtype), h_last
+    h = lru_scan(a, bx)
+    return h.to(x.dtype), h[:, -1]
 
 
 def rg_lru_step(x_t: torch.Tensor, h: torch.Tensor, w: dict

@@ -1,5 +1,5 @@
-"""Decoder assembly: global and sliding-window attention layers and RG-LRU
-recurrent layers, with dense (gated) MLPs.
+"""Decoder assembly: global and sliding-window attention layers with dense
+(gated) MLPs, RG-LRU recurrent layers and Mamba-1 layers.
 
 Layers are grouped into **period segments** exactly as the reference
 (``models/transformer.py``) groups them: the config's ``block_pattern`` is
@@ -12,10 +12,11 @@ of ``lax.scan``.
 
 Three entry points, as in the reference: ``forward`` (teacher-forced
 logits; training), ``prefill`` (the sequence plus caches; serving) and
-``decode_step`` (one token). The serving pair runs attention through the
-flash-attention and flash-decode kernels and the RG-LRU through its scan
-kernel; the training forward keeps the plain attention. MoE and Mamba
-layers come with their slices and raise.
+``decode_step`` (one token). The sequence path runs attention through the
+differentiable flash-attention kernels (forward, and the dkv and dq kernels
+in backward), the RG-LRU through its scan kernel and Mamba through the
+selective-scan kernel; decode runs attention through the flash-decode
+kernel. MoE layers come with their slice and raise.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
+from ..kernels.ssm_scan import ssm_scan
 from . import layers as L
 from . import rglru as RG
-from .config import ModelConfig, RGLRUConfig
+from . import ssm as SSM
+from .config import ModelConfig, RGLRUConfig, SSMConfig
 
 
 @dataclass(frozen=True)
@@ -59,7 +62,8 @@ def plan_segments(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = set(cfg.layer_kinds()) - {"global", "local", "rglru"}
+    unsupported = set(cfg.layer_kinds()) - {"global", "local", "rglru",
+                                            "mamba"}
     if unsupported:
         raise NotImplementedError(
             f"layer kinds {sorted(unsupported)} are not ported yet")
@@ -85,7 +89,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random parameters in the reference's layout, from ``seed``.
 
     Same distributions as the reference (normal / sqrt(fan_in), zero norm
-    offsets, RG-LRU ``lam`` uniform in [0.3, 1.5)) but not its numbers:
+    offsets, RG-LRU ``lam`` uniform in [0.3, 1.5), Mamba's ``A_log``,
+    ``D`` and ``dt_bias`` as constants) but not its numbers:
     ``jax.random`` streams cannot be reproduced, so parity tests carry the
     reference's parameters across with ``train.state_from_numpy``. With tied
     embeddings there is no ``lm_head`` leaf.
@@ -111,13 +116,31 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
             w["gate"] = dense((n, D, F_))
         return w
 
+    def mamba_params(n, s: SSMConfig):
+        DI, dt = s.expand * D, s.resolved_dt_rank(D)
+        A = torch.arange(1, s.d_state + 1, dtype=f32, device=device)
+        return {
+            "in_proj": dense((n, D, 2 * DI)),
+            "conv": dense((n, DI, s.d_conv), fan_in=s.d_conv),
+            "x_proj": dense((n, DI, dt + 2 * s.d_state)),
+            "dt_proj": dense((n, dt, DI)),
+            "dt_bias": torch.full((n, DI), -4.6, dtype=dtype,
+                                  device=device),   # softplus^-1(0.01)
+            "A_log": torch.log(A).expand(n, DI, s.d_state).contiguous(),
+            "D": torch.ones((n, DI), dtype=f32, device=device),
+            "out_proj": dense((n, DI, D)),
+        }
+
     D, F_ = cfg.d_model, cfg.d_ff
     params: dict[str, Any] = {"segments": []}
     for seg in plan_segments(cfg):
         n = seg.n_repeats
         seg_params = {}
         for pi, kind in enumerate(seg.pattern):
-            if kind == "rglru":
+            if kind == "mamba":
+                layer = {"norm1": zeros(n, D),
+                         "mamba": mamba_params(n, cfg.ssm or SSMConfig())}
+            elif kind == "rglru":
                 r = cfg.rglru or RGLRUConfig()
                 W = r.lru_width or D
                 nb = r.n_blocks or cfg.n_heads
@@ -175,13 +198,32 @@ def _qkv(x, w, cfg: ModelConfig, kind: str, positions):
             v)
 
 
+def _conv_window(raw: torch.Tensor, K: int) -> torch.Tensor:
+    """The last K - 1 conv inputs of a sequence (zero-padded in front when
+    it is shorter): the decode conv state after a prefill."""
+    S = raw.shape[1]
+    if S >= K - 1:
+        return raw[:, S - (K - 1):]
+    return F.pad(raw, (0, 0, K - 1 - S, 0))
+
+
+def _mamba_seq_with_cache(x, w, scfg: SSMConfig):
+    """Mamba block over the sequence, and its decode state: the raw conv
+    inputs' window and the scan's last state (prefill, no gradients)."""
+    A = -torch.exp(w["A_log"].to(torch.float32))
+    u_raw, gate = (x @ w["in_proj"]).chunk(2, dim=-1)
+    conv_state = _conv_window(u_raw, scfg.d_conv)
+    u = F.silu(L.causal_conv1d(u_raw, w["conv"]))
+    dt, Bm, Cm = SSM.split_xdbc(u @ w["x_proj"], scfg, x.shape[-1])
+    delta = F.softplus(dt @ w["dt_proj"] + w["dt_bias"])
+    y, h_last = ssm_scan(u, delta, A, Bm, Cm, w["D"])
+    y = y * F.silu(gate)
+    return y @ w["out_proj"], {"conv": conv_state, "ssm": h_last}
+
+
 def _rglru_seq_with_cache(x, w, rcfg: RGLRUConfig):
     branch_raw = x @ w["in_x"]
-    K = rcfg.d_conv
-    if x.shape[1] >= K - 1:
-        conv_state = branch_raw[:, x.shape[1] - (K - 1):]
-    else:
-        conv_state = F.pad(branch_raw, (0, 0, K - 1 - x.shape[1], 0))
+    conv_state = _conv_window(branch_raw, rcfg.d_conv)
     branch = L.causal_conv1d(branch_raw, w["conv"])
     y, h_last = RG.rg_lru(branch, w["lru"])
     gate = F.gelu(x @ w["in_gate"], approximate="tanh")
@@ -192,20 +234,24 @@ def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
                      collect_cache: bool, cache_len: int | None):
     """One layer, full sequence. Returns (x, cache or None).
 
-    ``collect_cache`` selects the prefill path: attention runs through the
-    flash-attention kernel and the layer's cache is built. Without it this
-    is the training forward, whose attention stays the plain
-    ``L.attention`` until the backward kernels are ported."""
+    Attention of both kinds runs through the differentiable flash-attention
+    kernels, Mamba through the selective-scan kernel. ``collect_cache``
+    selects the prefill path, which also builds the layer's decode cache;
+    without it this is the training forward."""
     cache = None
     h = L.rms_norm(x, w["norm1"], eps=cfg.norm_eps)
+    if kind == "mamba":    # no channel mix: the block is the whole layer
+        scfg = cfg.ssm or SSMConfig()
+        if collect_cache:
+            delta, cache = _mamba_seq_with_cache(h, w["mamba"], scfg)
+        else:
+            delta = SSM.mamba_block(h, w["mamba"], scfg)
+        return x + delta, cache
     if kind in ("global", "local"):
         B, S, _ = x.shape
         q, k, v = _qkv(h, w["attn"], cfg, kind, positions)
         window = _kind_window(cfg, kind)
-        if collect_cache:
-            out = flash_attention(q, k, v, True, window)
-        else:
-            out = L.attention(q, k, v, window=window)
+        out = flash_attention(q, k, v, True, window)
         x = x + out.reshape(B, S, cfg.q_dim) @ w["attn"]["wo"]
         if collect_cache:
             if kind == "local" and cfg.window:
@@ -279,7 +325,10 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     """Teacher-forced training forward. inputs: token ids (B,S). Returns
     (logits (B,S,V), aux_loss), or the final-norm output in place of the
     logits with ``return_hidden`` (the fused unembed+CE owns the head).
-    The cache-building path is ``prefill``."""
+    Every attention layer runs through the differentiable flash attention,
+    so its backward is the dkv and dq kernels on the card; every Mamba and
+    RG-LRU layer through its scan kernel, differentiated through the plain
+    version. The cache-building path is ``prefill``."""
     x, _ = _sequence(params, cfg, inputs, collect_cache=False, cache_len=None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
@@ -321,6 +370,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
             elif kind == "local":
                 c = L.init_kv_cache(batch, min(cfg.window or max_len, max_len),
                                     cfg.n_kv_heads, cfg.head_dim, dtype, device)
+            elif kind == "mamba":
+                c = SSM.mamba_init_state(batch, cfg.d_model,
+                                         cfg.ssm or SSMConfig(), dtype, device)
             else:
                 r = cfg.rglru or RGLRUConfig()
                 c = RG.recurrent_init_state(batch, r.lru_width or cfg.d_model,
@@ -334,8 +386,13 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
                         cfg: ModelConfig):
     """One layer, one token. x: (B,1,D). Returns (x, new_cache). Attention
     of both kinds runs through the flash-decode kernel: a full cache with
-    ``pos + 1`` valid rows, a ring with its filled slots."""
+    ``pos + 1`` valid rows, a ring with its filled slots. Mamba and RG-LRU
+    layers step their recurrence in plain PyTorch."""
     h = L.rms_norm(x, w["norm1"], eps=cfg.norm_eps)
+    if kind == "mamba":    # no channel mix: the block is the whole layer
+        delta, cache = SSM.mamba_step(h, cache, w["mamba"],
+                                      cfg.ssm or SSMConfig())
+        return x + delta, cache
     if kind in ("global", "local"):
         B = x.shape[0]
         q, k, v = _qkv(h, w["attn"], cfg, kind, pos)

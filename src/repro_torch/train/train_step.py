@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..checkpoint import serialize as ser
 from ..checkpoint.sharded import TensorSpec
@@ -30,12 +31,28 @@ from ..optim import AdamWConfig, adamw_update, init_opt_state
 TrainState = dict  # {"params", "opt", "step", "rng", "data"}
 
 
+def _chunk_xent(hidden_c: torch.Tensor, head32: torch.Tensor,
+                labels_c: torch.Tensor) -> torch.Tensor:
+    """One sequence chunk's loss sum from float32 logits."""
+    logits = hidden_c.to(torch.float32) @ head32
+    lse = torch.logsumexp(logits, dim=-1)
+    # the gold logit as a one-hot contraction: its gradient is elementwise,
+    # where gather's CUDA backward accumulates atomically
+    onehot = F.one_hot(labels_c, logits.shape[-1])
+    gold = torch.sum(logits * onehot.to(logits.dtype), dim=-1)
+    return torch.sum(lse - gold)
+
+
 def fused_unembed_xent(hidden: torch.Tensor, head: torch.Tensor,
                        labels: torch.Tensor, *, seq_chunks: int = 8
                        ) -> torch.Tensor:
     """Chunked unembed + cross-entropy: per sequence chunk, float32 logits
     (products of the stored values, float32 sums), reduced to a loss sum;
-    the full (B, S, V) logits never exist at once."""
+    the full (B, S, V) logits never exist at once. Each chunk's logits and
+    one-hot mask are recomputed in backward (a non-reentrant checkpoint, as
+    the reference's ``jax.checkpoint``), so a step keeps none of them: the
+    same graph, ops and order as without the checkpoint, hence the same
+    loss and gradients bit for bit."""
     B, S, _D = hidden.shape
     n = min(seq_chunks, S)
     while S % n != 0:
@@ -45,14 +62,10 @@ def fused_unembed_xent(hidden: torch.Tensor, head: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = S // n
     for i in range(n):
-        xc = hidden[:, i * c:(i + 1) * c].to(torch.float32)
-        logits = xc @ head32
-        lse = torch.logsumexp(logits, dim=-1)
-        # the gold logit as a one-hot contraction: its gradient is
-        # elementwise, where gather's CUDA backward accumulates atomically
-        onehot = F.one_hot(labels[:, i * c:(i + 1) * c], logits.shape[-1])
-        gold = torch.sum(logits * onehot.to(logits.dtype), dim=-1)
-        total = total + torch.sum(lse - gold)
+        part = checkpoint(_chunk_xent, hidden[:, i * c:(i + 1) * c], head32,
+                          labels[:, i * c:(i + 1) * c], use_reentrant=False,
+                          preserve_rng_state=False)
+        total = total + part
     return total / (B * S)
 
 
@@ -78,23 +91,30 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def loss_and_grads(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
+                   labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                  dict]:
+    """The train step's loss (mean cross-entropy), aux loss and gradients
+    (a tree like ``params``): the forward with the hidden state, then the
+    fused unembed + cross-entropy, differentiated."""
+    named = ser.flatten_state(params)
+    leaves = {n: p.detach().requires_grad_(True) for n, p in named.items()}
+    with torch.enable_grad():
+        tree = ser.unflatten_like(params, leaves)
+        hidden, aux = forward(tree, cfg, inputs, return_hidden=True)
+        ce = fused_unembed_xent(hidden, unembed_weights(tree, cfg), labels)
+        grads = torch.autograd.grad(ce, list(leaves.values()))
+    return (ce.detach(), aux, ser.unflatten_like(params,
+                                                 dict(zip(leaves, grads))))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
     """Returns train_step(state, batch) -> (state, metrics)."""
 
-    def loss_fn(params, inputs, labels):
-        hidden, aux = forward(params, cfg, inputs, return_hidden=True)
-        ce = fused_unembed_xent(hidden, unembed_weights(params, cfg), labels)
-        return ce, aux
-
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state["params"]
-        named = ser.flatten_state(params)
-        leaves = {n: p.detach().requires_grad_(True) for n, p in named.items()}
-        with torch.enable_grad():
-            ce, aux = loss_fn(ser.unflatten_like(params, leaves),
-                              batch["inputs"], batch["labels"])
-            grads = torch.autograd.grad(ce, list(leaves.values()))
-        grads = ser.unflatten_like(params, dict(zip(leaves, grads)))
+        loss, aux, grads = loss_and_grads(cfg, params, batch["inputs"],
+                                          batch["labels"])
         new_params, new_opt, opt_metrics = adamw_update(
             grads, state["opt"], params, opt_cfg)
         new_state = {
@@ -104,7 +124,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
             "rng": state["rng"],
             "data": {"next_batch_index": state["data"]["next_batch_index"] + 1},
         }
-        loss = ce.detach()
         metrics = {"loss": loss, "ce": loss, "aux": aux, **opt_metrics}
         return new_state, metrics
 

@@ -2,8 +2,14 @@
 checkpoint kernels and the RG-LRU scan bit for bit, the attention kernels
 within float32 summation-order tolerances: 2e-5 in float32; in bfloat16 one
 bfloat16 ulp of each output (both sides round nearly equal float32 values,
-so they differ by at most one ulp: 2**-7 relative) plus 2e-5. Imports no
-JAX, so it runs on a machine that has only the port's dependencies:
+so they differ by at most one ulp: 2**-7 relative) plus 2e-5. The backward
+kernels' gradients: in float32 max|err| <= 2e-4 * max(1, max|plain|) (the
+reference's gradient tolerance, 10 x 2e-5); in bfloat16 two bf16 ulps of
+each element (2 * 2**-7 relative) plus that float32 limit. The selective
+scan: in float32 within 1e-4 (the reference's tolerance); in bfloat16 y
+within one ulp (2**-7 relative) plus 1e-4, h_last within 1e-4 of its
+largest. Imports no JAX, so it runs on a machine that has only the port's
+dependencies:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -21,9 +27,18 @@ from repro_torch.kernels import fingerprint as fp  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_ref,  # noqa: E402
                                                   flash_decode)
-from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,  # noqa: E402
+                                                 attention_dkv_ref,
+                                                 attention_dq_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_dkv,
+                                                 flash_attention_dq,
                                                  flash_attention_fwd)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import (selective_scan, ssm_scan,  # noqa: E402
+                                          ssm_scan_ref)
 
 CHUNK = 64 * 1024
 
@@ -267,3 +282,169 @@ def test_serving_kernels_refuse_bad_operands(cuda):
         flash_decode(h[:, 0, :, :32].contiguous(), h[:, :, :1, :32], h[:, :, :1, :32], 4)
     with pytest.raises(TypeError, match="dtype"):
         rglru_scan(h[:, :, 0], h[:, :, 0])
+
+
+GRAD_TOL = 2e-4          # of max(1, max|plain|): 10 x the forward's 2e-5
+BF16_ULP = 2 ** -7       # one bf16 ulp, relative
+
+
+def assert_grad_close(got, want, what=""):
+    """float32: max|err| <= GRAD_TOL * max(1, max|want|); bfloat16: within
+    two bf16 ulps of each element plus that float32 limit."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    g, w = got.double(), want.double()
+    lim = GRAD_TOL * max(1.0, float(w.abs().max()))
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        lim = lim + 2 * BF16_ULP * w.abs()
+    assert bool((err <= lim).all()), (what, float(err.max()))
+
+
+FLASH_BWD_GPU_CASES = [
+    # B, S, H, KV, hd, window, dtype
+    (2, 256, 4, 1, 256, 0, torch.bfloat16),       # gemma3's heads, global
+    (2, 320, 4, 1, 256, 100, torch.bfloat16),     # window
+    (1, 192, 4, 2, 256, 0, torch.float32),        # GQA, 32-row tiles
+    (2, 128, 32, 32, 96, 0, torch.bfloat16),      # phi3-mini's heads
+    (1, 200, 4, 4, 96, 0, torch.float32),         # padding path: 200 -> 256
+    (1, 77, 4, 2, 128, 16, torch.float32),        # padding path, window
+    (2, 256, 8, 2, 64, 64, torch.float32),        # GQA, window
+    (1, 128, 8, 4, 128, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,dtype", FLASH_BWD_GPU_CASES)
+def test_flash_attention_backward_kernels_match_plain(cuda, B, S, H, KV, hd,
+                                                      window, dtype):
+    q = randn((B, S, H, hd), dtype, 3 * S + hd, cuda)
+    k = randn((B, S, KV, hd), dtype, 3 * S + hd + 1, cuda)
+    v = randn((B, S, KV, hd), dtype, 3 * S + hd + 2, cuda)
+    do = randn((B, S, H, hd), dtype, 3 * S + hd + 3, cuda)
+    o, lse = flash_attention_fwd(q, k, v, True, window)
+    before = dict(_lib.LAUNCHES)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, window)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention_dkv"] == before["flash_attention_dkv"] + 1
+    assert _lib.LAUNCHES["flash_attention_dq"] == before["flash_attention_dq"] + 1
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert_grad_close(g, w, name)
+
+
+@pytest.mark.parametrize("hd,window", [(256, 0), (96, 0), (64, 32)])
+def test_flash_attention_backward_passes_match_their_plain_versions(cuda, hd,
+                                                                    window):
+    """Each pass alone on block-aligned operands: dk, dv per query head in
+    float32, dq in q's dtype."""
+    B, S, H, KV = 2, 192, 4, 2
+    q = randn((B, S, H, hd), torch.float32, hd, cuda)
+    k = randn((B, S, KV, hd), torch.float32, hd + 1, cuda)
+    v = randn((B, S, KV, hd), torch.float32, hd + 2, cuda)
+    do = randn((B, S, H, hd), torch.float32, hd + 3, cuda)
+    o, lse = flash_attention_fwd(q, k, v, True, window)
+    dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, True, window)
+    wk, wv = attention_dkv_ref(q, k, v, do, lse, dsum, causal=True,
+                               window=window)
+    assert dk.shape == (B, S, H, hd) and dk.dtype == torch.float32
+    assert_grad_close(dk, wk, "dk")
+    assert_grad_close(dv, wv, "dv")
+    assert_grad_close(flash_attention_dq(q, k, v, do, lse, dsum, True, window),
+                      attention_dq_ref(q, k, v, do, lse, dsum, causal=True,
+                                       window=window), "dq")
+
+
+def test_flash_attention_backward_is_deterministic(cuda):
+    B, S, H, KV, hd = 2, 256, 4, 1, 256
+    q, k, v = (randn((B, S, n, hd), torch.bfloat16, n, cuda) for n in (H, KV, KV))
+    do = randn((B, S, H, hd), torch.bfloat16, 9, cuda)
+    o, lse = flash_attention_fwd(q, k, v, True, 64)
+    first = flash_attention_bwd(q, k, v, o, lse, do, True, 64)
+    again = flash_attention_bwd(q, k, v, o, lse, do, True, 64)
+    assert all(same_bits(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_grads_run_through_the_kernels(cuda):
+    B, S, H, KV, hd = 1, 128, 4, 1, 256
+    q = randn((B, S, H, hd), torch.float32, 1, cuda).requires_grad_(True)
+    k = randn((B, S, KV, hd), torch.float32, 2, cuda).requires_grad_(True)
+    v = randn((B, S, KV, hd), torch.float32, 3, cuda).requires_grad_(True)
+    before = dict(_lib.LAUNCHES)
+    out = flash_attention(q, k, v, True, 32)
+    grads = torch.autograd.grad(torch.sin(out).sum(), (q, k, v))
+    for name in ("flash_attention_fwd", "flash_attention_dkv",
+                 "flash_attention_dq"):
+        assert _lib.LAUNCHES[name] == before[name] + 1, name
+    q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(
+        torch.sin(attention_ref(q2, k2, v2, causal=True, window=32)[0]).sum(),
+        (q2, k2, v2))
+    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert_grad_close(g, w, name)
+
+
+SSM_GPU_CASES = [
+    # B, S, DI, dtype
+    (2, 128, 256, torch.float32),
+    (1, 200, 96, torch.float32),                  # DI a multiple of no block
+    (4, 1984, 8192, torch.bfloat16),              # falcon-mamba's prefill
+    (2, 65, 128, torch.bfloat16),                 # a partial staging chunk
+]
+
+
+def ssm_inputs(B, S, DI, dtype, device, N=16):
+    g = torch.Generator().manual_seed(S * DI + B)
+    u = torch.randn((B, S, DI), generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, DI), generator=g) - 2.0).to(dtype)
+    A = -torch.exp(torch.randn((DI, N), generator=g) * 0.3)
+    Bm = torch.randn((B, S, N), generator=g).to(dtype)
+    Cm = torch.randn((B, S, N), generator=g).to(dtype)
+    D = torch.full((DI,), 0.5)
+    return [t.to(device) for t in (u, dt, A, Bm, Cm, D)]
+
+
+@pytest.mark.parametrize("B,S,DI,dtype", SSM_GPU_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, DI, dtype):
+    args = ssm_inputs(B, S, DI, dtype, cuda)
+    before = _lib.LAUNCHES["ssm_scan"]
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["ssm_scan"] == before + 1
+    yr, hr = ssm_scan_ref(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=0)
+        torch.testing.assert_close(h, hr, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(y.float(), yr.float(), atol=1e-4,
+                                   rtol=BF16_ULP)
+        assert float((h - hr).abs().max()) <= 1e-4 * max(1.0, float(hr.abs().max()))
+
+
+def test_selective_scan_grads_through_the_plain_version(cuda):
+    args = [t.requires_grad_(True) for t in ssm_inputs(1, 32, 64, torch.float32, cuda)]
+    before = _lib.LAUNCHES["ssm_scan"]
+    y = selective_scan(*args)
+    assert _lib.LAUNCHES["ssm_scan"] == before + 1
+    grads = torch.autograd.grad(y.sum(), args)
+    ref = [t.detach().clone().requires_grad_(True) for t in args]
+    want = torch.autograd.grad(ssm_scan_ref(*ref)[0].sum(), ref)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_backward_and_scan_kernels_refuse_bad_operands(cuda):
+    q = torch.zeros(1, 64, 2, 48, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_dkv(q, q[:, :, :1], q[:, :, :1], q, lse, lse)
+    q = torch.zeros(1, 40, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_attention_dq(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(),
+                           q, lse[..., :40].contiguous(), lse[..., :40].contiguous())
+    args = ssm_inputs(1, 8, 32, torch.float32, cuda, N=8)
+    with pytest.raises(ValueError, match="d_state"):
+        ssm_scan(*args)
+    args = ssm_inputs(1, 8, 32, torch.float16, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ssm_scan(*args)

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.fingerprint, repro_torch.serve, "
             "repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.decode_attention, "
-            "repro_torch.kernels.rglru_scan; "
+            "repro_torch.kernels.rglru_scan, repro_torch.kernels.ssm_scan, "
+            "repro_torch.models.ssm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -105,13 +106,19 @@ def test_serve_entry_points_refuse_without_a_gpu(no_gpu):
 
 
 def test_flash_attention_refuses_an_input_that_requires_grad():
-    from repro_torch.kernels.flash_attention import flash_attention
+    """The raw forward kernel records no backward and refuses grad, as a raw
+    ``pallas_call`` has no VJP; ``flash_attention`` is differentiable."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd)
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     k = torch.randn(1, 8, 1, 32)
     with pytest.raises(RuntimeError, match="requires? grad"):
-        flash_attention(q, k, k)
+        flash_attention_fwd(q, k, k)
     with pytest.raises(RuntimeError, match="requires? grad"):
-        flash_attention(q.detach(), k.requires_grad_(True), k)
+        flash_attention_fwd(q.detach(), k.requires_grad_(True), k)
+    dq, dk = torch.autograd.grad(flash_attention(q, k, k).sum(), (q, k))
+    assert dq.shape == q.shape and dk.shape == k.shape
+    assert bool(torch.isfinite(dq).all()) and bool(dq.abs().sum() > 0)
 
 
 def test_trainer_refuses_without_a_gpu(no_gpu, tmp_path):

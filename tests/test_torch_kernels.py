@@ -228,7 +228,8 @@ def test_sources_carry_their_notes_and_no_fast_math():
     srcs = list(_lib.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {
         "fingerprint.cu", "quantize.cu", "flash_attention.cu",
-        "decode_attention.cu", "rglru_scan.cu"}
+        "flash_attention_bwd.cu", "decode_attention.cu", "ssm_scan.cu",
+        "rglru_scan.cu"}
     for p in srcs:
         text = p.read_text()
         assert "Replaces" in text and "bound" in text.lower()

@@ -1,6 +1,7 @@
 """The port's serving path (prefill, decode, greedy generation) for gemma3
-(ring + full caches) and recurrentgemma (RG-LRU + ring) against the JAX
-package, on the reference's own parameters and caches (carried across with
+(ring + full caches), recurrentgemma (RG-LRU + ring) and falcon-mamba
+(conv window + float32 SSM state) against the JAX package, on the
+reference's own parameters and caches (carried across with
 ``serve.state_from_numpy``), and serving states that interchange through
 both packages' checkpoint stores.
 
@@ -37,7 +38,7 @@ from repro_torch.train import state_template_on_device  # noqa: E402
 TOL = 5e-4
 B, PROMPT, NEW = 2, 12, 8
 TOTAL = PROMPT + NEW
-ARCHS = ["gemma3_1b", "recurrentgemma_2b"]
+ARCHS = ["gemma3_1b", "recurrentgemma_2b", "falcon_mamba_7b"]
 
 
 def to_numpy(tree) -> dict[str, np.ndarray]:
@@ -87,9 +88,12 @@ def ref(request):
 
 
 def test_smoke_params_carry_across_with_tied_embeddings(ref):
+    """Every leaf carries across by name; a tied model (gemma3,
+    recurrentgemma) has no lm_head leaf, an untied one (falcon-mamba) has."""
     names = list(tser.flatten_state(ref.tparams))
     assert names == list(to_numpy(ref.jparams))
-    assert "lm_head" not in ref.tparams and ref.tc.tie_embeddings
+    assert ("lm_head" in ref.tparams) == (not ref.tc.tie_embeddings)
+    assert ref.tc.tie_embeddings == (ref.tc.family != "ssm")
 
 
 def test_forward_logits_match(ref):
