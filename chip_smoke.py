@@ -14,7 +14,11 @@ their full published configs, all with seeded weights:
   kernels         fingerprint / absmax / quantize / dequantize vs plain;
                   flash-attention forward, flash decode, the selective scan
                   and the RG-LRU scan vs plain at the serving shapes; the
-                  flash-attention backward (dkv, dq) at the training shapes
+                  flash-attention backward (dkv, dq) at the training shapes.
+                  The forward and the dkv pass have two variants, chosen by
+                  dtype: bfloat16 on the tensor cores (wgmma), float32 on
+                  the CUDA cores; each is held, timed (with its TFLOP/s)
+                  and listed as a row of its own
   delta           delta saves of the full-width state at 1% and 5% block
                   churn: exact d2h accounting, bit-identical restore
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
@@ -37,7 +41,10 @@ their full published configs, all with seeded weights:
                   continue to bitwise the same tokens
 
 Launch counts are reset just before each main-path run and read just after
-it; every kernel must have launched on the main path. Prints the card's name and power
+it; every kernel must have launched on the main path. Every bf16 run's
+flash forward and dkv launches must have gone through the tensor-core
+variants, and the float32 runs (the one-period gradient check, the float32
+decode against teacher forcing) through the CUDA-core ones. Prints the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if any
 phase fails or no GPU is present.
@@ -79,6 +86,7 @@ SERVE_B, PROMPT, NEW, CACHE_LEN = 4, 1984, 64, 2048   # serving phases
 SAVE_AT = 32                   # new tokens before the mid-generation save
 LOGIT_TOL = 2e-3               # float32 decode vs teacher-forced logits
 TRAIN_B, TRAIN_S = 2, 2048     # gemma3-1b training batch
+PHI3_S = 2048                  # the kernels' phi3-mini case (32 heads of 96)
 TRAIN_STEPS = 8
 LOOP_LAYERS, LOOP_S = 6, 1024  # spot_loop_gemma3: one period, its sequences
 GRAD_TOL = 2e-4                # backward kernels vs plain in float32, of
@@ -304,6 +312,36 @@ def _sdpa(q, k, v, **kw):
                              enable_gqa=True, **kw)
 
 
+def _fwd_times(q, k, v, window, rate) -> dict:
+    """Device times of the flash forward on causal (optionally windowed)
+    self-attention operands, its plain version and SDPA (causal flag, or a
+    band mask for a window), with the bound and the achieved rate. Each
+    bound counts the work this data needs: the unmasked (q, k) pairs at 4
+    FLOPs per pair and head dimension (QK^T and PV) over ``rate``, or the
+    bytes of q, k, v read and o, lse written."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    B, S, H, hd = q.shape
+    flops = B * H * _pairs(S, window) * hd * 4
+    nbytes = (q.numel() + k.numel() * 2 + q.numel()) * q.element_size() \
+        + B * H * S * 4
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window:
+        pos = torch.arange(S, device=q.device)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        lib = _sdpa(qt, kt, vt, attn_mask=band)
+    else:
+        lib = _sdpa(qt, kt, vt, is_causal=True)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, True, window))
+    return dict(ms=ms,
+                plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                       window=window), reps=5),
+                library_ms=time_ms(lib), bound=bound(nbytes, flops, rate),
+                tflops=flops / ms / 1e9)
+
+
 def _att_check(what, got, want, lse=None, want_lse=None) -> float:
     """Hold an attention output against its plain version: float32 within
     ATT_TOL, bfloat16 within one ulp of each element (+ ATT_TOL); the
@@ -343,44 +381,48 @@ def serving_kernels(dev) -> dict:
     k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(bf)
     v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(bf)
     out: dict = {}
-    flash = {}
+    flash, flash32 = {}, {}
     for window in (512, 0):
+        name = f"window_{window}" if window else "global"
         what = f"flash_attention window={window}"
         o, lse = flash_attention_fwd(q, k, v, True, window)
         want, want_lse = attention_ref(q, k, v, causal=True, window=window)
         err = _att_check(what, o, want, lse, want_lse)
-        o32, lse32 = flash_attention_fwd(q.to(f32), k.to(f32), v.to(f32), True,
-                                         window)
-        want32, wl32 = attention_ref(q.to(f32), k.to(f32), v.to(f32),
-                                     causal=True, window=window)
+        del want
+        flash[name] = dict(
+            _fwd_times(q, k, v, window, BF16_FLOPS_PER_S), max_abs_err=err,
+            lse_max_abs_err=max_abs_err(lse, want_lse), tol=ATT_TOL,
+            bf16_rtol=BF16_RTOL, shape=[B, S, H, KV, hd], window=window,
+            dtype="bfloat16", kernel="wgmma (tensor cores)")
+        # the CUDA-core float32 kernel on the same values widened: held
+        # (no bf16 rounding to hide a fault in) and timed
+        a32 = tuple(t.to(f32) for t in (q, k, v))
+        o32, lse32 = flash_attention_fwd(*a32, True, window)
+        want32, wl32 = attention_ref(*a32, causal=True, window=window)
         err32 = _att_check(what + " float32", o32, want32, lse32, wl32)
         del o32, lse32, want32, wl32
-        qpos = torch.arange(S, device=dev)
-        n_keys = (torch.clamp(qpos + 1, max=window) if window else qpos + 1)
-        pairs = int(n_keys.sum())
-        ops = B * H * pairs * hd * 4                     # QK^T and PV
-        nbytes = (q.numel() * 2 + k.numel() * 2 * 2 + o.numel() * 2
-                  + lse.numel() * 4)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if window:
-            band = ((qpos[None, :] <= qpos[:, None])
-                    & (qpos[None, :] > qpos[:, None] - window))
-            lib = _sdpa(qt, kt, vt, attn_mask=band)
-        else:
-            lib = _sdpa(qt, kt, vt, is_causal=True)
-        flash[f"window_{window}" if window else "global"] = dict(
-            ms=time_ms(lambda: flash_attention_fwd(q, k, v, True, window)),
-            plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                   window=window), reps=5),
-            library_ms=time_ms(lib), max_abs_err=err,
-            f32_max_abs_err=err32,
-            lse_max_abs_err=max_abs_err(lse, want_lse),
-            bound=bound(nbytes, ops, BF16_FLOPS_PER_S), tol=ATT_TOL,
-            bf16_rtol=BF16_RTOL, shape=[B, S, H, KV, hd], window=window,
-            dtype="bfloat16")
-    # the row: the global layer's case; the window-512 case beside it
-    out["flash_attention_fwd"] = dict(flash["global"], cases=flash)
-    del q, k, v, qt, kt, vt, o, want
+        flash32[name] = dict(
+            _fwd_times(*a32, window, OPS32_PER_S), max_abs_err=err32,
+            tol=ATT_TOL, shape=[B, S, H, KV, hd], window=window,
+            dtype="float32", kernel="CUDA cores")
+        del a32, o, lse
+    # phi3-mini's heads (32 of 96) at a PHI3_S-token causal prefill
+    qp, kp, vp = (torch.randn((1, PHI3_S, 32, 96), generator=g,
+                              device=dev).to(bf) for _ in range(3))
+    o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
+    want, want_lse = attention_ref(qp, kp, vp, causal=True)
+    flash["phi3_hd96"] = dict(
+        _fwd_times(qp, kp, vp, 0, BF16_FLOPS_PER_S),
+        max_abs_err=_att_check("flash_attention phi3 hd 96", o, want, lse,
+                               want_lse),
+        tol=ATT_TOL, bf16_rtol=BF16_RTOL, shape=[1, PHI3_S, 32, 32, 96],
+        window=0, dtype="bfloat16", kernel="wgmma (tensor cores)")
+    del qp, kp, vp, o, lse, want
+    # the rows: the global layer's case; the others beside it
+    out["flash_attention_fwd_wgmma"] = dict(flash["global"], cases=flash)
+    out["flash_attention_fwd_cudacore"] = dict(flash32["global"], cases=flash32)
+    del q, k, v
+    torch.cuda.empty_cache()
 
     # decode: gemma3's full cache at valid_len 2000 (not a multiple of the
     # kernel's 32-key chunk) and its filled 512-slot ring, and
@@ -476,6 +518,27 @@ def _pairs(S: int, window: int) -> int:
     return sum(min(i + 1, window) if window else i + 1 for i in range(S))
 
 
+def _sdpa_bwd_ms(q, k, v, do, window) -> float:
+    """Device time of SDPA's backward alone (both passes) on (B,S,H,hd)
+    operands: the library yardstick of the flash backward."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+
+
 def training_kernels(dev) -> dict:
     """The flash-attention backward kernels against their plain versions at
     gemma3-1b's training shapes (bf16, and float32 on the same values
@@ -483,7 +546,6 @@ def training_kernels(dev) -> dict:
     sequence and GQA through the full ``flash_attention_bwd``. Times of
     each pass, its plain version and SDPA's backward."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_dkv_ref,
                                                      attention_dq_ref,
@@ -501,8 +563,7 @@ def training_kernels(dev) -> dict:
              for _ in range(2))
     k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(bf)
             for _ in range(2))
-    qpos = torch.arange(S, device=dev)
-    dkv_cases, dq_cases = {}, {}
+    dkv_cases, dkv32_cases, dq_cases = {}, {}, {}
     for window in (512, 0):
         name = f"window_{window}" if window else "global"
         o, lse = flash_attention_fwd(q, k, v, True, window)
@@ -517,7 +578,8 @@ def training_kernels(dev) -> dict:
         err_dq = _grad_check(f"dq {name}", dq,
                              attention_dq_ref(*args, causal=True, window=window))
         del dq
-        # float32 on the same values widened: no bf16 rounding to hide in
+        # float32 on the same values widened: no bf16 rounding to hide in;
+        # the CUDA-core dkv kernel, timed
         a32 = tuple(t.to(f32) for t in (q, k, v, do))
         o32, lse32 = flash_attention_fwd(*a32[:3], True, window)
         ds32 = (a32[3] * o32).sum(-1).transpose(1, 2).contiguous()
@@ -531,38 +593,36 @@ def training_kernels(dev) -> dict:
         f32_err_dq = _grad_check(
             f"dq {name} float32", flash_attention_dq(*args32, True, window),
             attention_dq_ref(*args32, causal=True, window=window))
-        del a32, o32, lse32, ds32, args32
-        # SDPA's backward alone, at the same shapes: the library yardstick
-        # of both passes together
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        if window:
-            band = ((qpos[None, :] <= qpos[:, None])
-                    & (qpos[None, :] > qpos[:, None] - window))
-            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                                 enable_gqa=True)
-        else:
-            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
-        del out, qt, kt, vt, dot
         pairs = B * H * _pairs(S, window)
         in_bytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2
                     + lse.numel() * 4 * 2)                # q, do, k, v, lse, D
-        common = dict(library_ms=lib_ms, shape=[B, S, H, KV, hd],
-                      window=window, dtype="bfloat16", tol=GRAD_TOL,
-                      bf16_ulps=2, library="SDPA backward (both passes)")
+        out_bytes = B * S * H * hd * 4 * 2     # dk, dv per query head, float32
+        ms32 = time_ms(lambda: flash_attention_dkv(*args32, True, window))
+        dkv32_cases[name] = dict(
+            ms=ms32, plain_ms=time_ms(lambda: attention_dkv_ref(
+                *args32, causal=True, window=window), reps=3),
+            library_ms=_sdpa_bwd_ms(*a32, window), max_abs_err=f32_err_dkv,
+            bound=bound((q.numel() * 2 + k.numel() * 2) * 4
+                        + lse.numel() * 4 * 2 + out_bytes, pairs * hd * 8),
+            tflops=pairs * hd * 8 / ms32 / 1e9, tol=GRAD_TOL,
+            shape=[B, S, H, KV, hd], window=window, dtype="float32",
+            kernel="CUDA cores", library="SDPA backward (both passes)")
+        del a32, o32, lse32, ds32, args32
+        common = dict(library_ms=_sdpa_bwd_ms(q, k, v, do, window),
+                      shape=[B, S, H, KV, hd], window=window,
+                      dtype="bfloat16", tol=GRAD_TOL, bf16_ulps=2,
+                      library="SDPA backward (both passes)")
+        ms = time_ms(lambda: flash_attention_dkv(*args, True, window))
         dkv_cases[name] = dict(
-            ms=time_ms(lambda: flash_attention_dkv(*args, True, window)),
-            plain_ms=time_ms(lambda: attention_dkv_ref(
+            ms=ms, plain_ms=time_ms(lambda: attention_dkv_ref(
                 *args, causal=True, window=window), reps=3),
             max_abs_err=err_dkv, f32_max_abs_err=f32_err_dkv,
             # S, dP, dV, dK: four products, 8 FLOPs per pair and head dim;
             # dk, dv written per query head in float32
-            bound=bound(in_bytes + B * S * H * hd * 4 * 2, pairs * hd * 8,
-                        BF16_FLOPS_PER_S), **common)
+            bound=bound(in_bytes + out_bytes, pairs * hd * 8,
+                        BF16_FLOPS_PER_S),
+            tflops=pairs * hd * 8 / ms / 1e9, kernel="wgmma (tensor cores)",
+            **common)
         dq_cases[name] = dict(
             ms=time_ms(lambda: flash_attention_dq(*args, True, window)),
             plain_ms=time_ms(lambda: attention_dq_ref(
@@ -573,6 +633,30 @@ def training_kernels(dev) -> dict:
                         BF16_FLOPS_PER_S), **common)
         del o, lse, dsum, args
     del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # the tensor-core dkv pass at phi3-mini's heads (32 of 96), PHI3_S tokens
+    qp, dop, kp, vp = (torch.randn((1, PHI3_S, 32, 96), generator=g,
+                                   device=dev).to(bf) for _ in range(4))
+    o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
+    dsum = (dop.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (qp, kp, vp, dop, lse, dsum)
+    err = max(_grad_check(f"dkv phi3_hd96 {n}", x, y)
+              for n, x, y in zip(("dk", "dv"),
+                                 flash_attention_dkv(*args, True, 0),
+                                 attention_dkv_ref(*args, causal=True)))
+    pairs = 32 * _pairs(PHI3_S, 0)
+    ms = time_ms(lambda: flash_attention_dkv(*args, True, 0))
+    dkv_cases["phi3_hd96"] = dict(
+        ms=ms, plain_ms=time_ms(lambda: attention_dkv_ref(*args, causal=True),
+                                reps=3),
+        library_ms=_sdpa_bwd_ms(qp, kp, vp, dop, 0), max_abs_err=err,
+        bound=bound(qp.numel() * 8 + lse.numel() * 8 + qp.numel() * 8,
+                    pairs * 96 * 8, BF16_FLOPS_PER_S),
+        tflops=pairs * 96 * 8 / ms / 1e9, kernel="wgmma (tensor cores)",
+        shape=[1, PHI3_S, 32, 32, 96], window=0, dtype="bfloat16", tol=GRAD_TOL,
+        library="SDPA backward (both passes)")
+    del qp, kp, vp, dop, o, lse, dsum, args
     torch.cuda.empty_cache()
 
     # the whole backward (padding, both passes, the group sums) on more
@@ -595,8 +679,10 @@ def training_kernels(dev) -> dict:
                                  window=win)
         extra[name] = max(_grad_check(f"backward {name} {n}", a, b)
                           for n, a, b in zip(("dq", "dk", "dv"), got, want))
-    return {"flash_attention_dkv": dict(dkv_cases["global"], cases=dkv_cases,
-                                        checks=extra),
+    return {"flash_attention_dkv_wgmma": dict(
+                dkv_cases["global"], cases=dkv_cases, checks=extra),
+            "flash_attention_dkv_cudacore": dict(
+                dkv32_cases["global"], cases=dkv32_cases, checks=extra),
             "flash_attention_dq": dict(dq_cases["global"], cases=dq_cases,
                                        checks=extra)}
 
@@ -838,6 +924,16 @@ def _loop_summary(rep, wall_s) -> dict:
             "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s}
 
 
+def _need_variant(counted: dict, what: str, variant: str) -> None:
+    """Every flash forward and dkv launch of a run went through ``variant``:
+    "wgmma" (bfloat16, the tensor cores) or "cudacore" (float32)."""
+    for p in ("fwd", "dkv"):
+        k = f"flash_attention_{p}"
+        need(counted[f"{k}_{variant}"] == counted[k],
+             f"{what}: {counted[f'{k}_{variant}']} of {counted[k]} {k} "
+             f"launches went through the {variant} kernel")
+
+
 def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
                     seq_len=64) -> dict:
     import torch
@@ -864,6 +960,7 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
     for k in ("flash_attention_fwd", "flash_attention_dkv",
               "flash_attention_dq"):
         need(launches[name][k] > 0, f"the train steps launched no {k} kernel")
+    _need_variant(launches[name], name, "wgmma")
     res["config"] = {"name": cfg.name, "n_layers": cfg.n_layers,
                      "d_model": cfg.d_model, "head_dim": cfg.head_dim,
                      "batch": 2, "seq_len": seq_len}
@@ -964,6 +1061,7 @@ def phase_train_gemma3(dev, card, launches) -> dict:
         need(counted[k] == n_attn * TRAIN_STEPS,
              f"train_gemma3: {counted[k]} {k} launches, expected "
              f"{n_attn} per step")
+    _need_variant(counted, "train_gemma3", "wgmma")
     need(all(math.isfinite(x) for x in losses), "train_gemma3: non-finite loss")
     med = statistics.median(step_s)
     res = {"card": card,
@@ -986,10 +1084,18 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     params = init_params(cfg32, seed=1, device=dev)
     tok = torch.randint(0, cfg.vocab_size, (1, LOOP_S + 1), generator=g,
                         device=dev, dtype=torch.int32)
+    # the float32 path: its own counts, through the CUDA-core kernels
+    _lib.reset_launches()
     t0 = time.perf_counter()
     loss_d, _, grads_d = loss_and_grads(cfg32, params, tok[:, :-1], tok[:, 1:])
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
+    launches["train_gemma3_f32"] = c32 = dict(_lib.LAUNCHES)
+    n_attn32 = sum(k in ("global", "local") for k in cfg32.layer_kinds())
+    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_cudacore"):
+        need(c32[k] == n_attn32, f"train_gemma3 float32: {c32[k]} {k} "
+                                 f"launches, expected {n_attn32}")
+    _need_variant(c32, "train_gemma3 float32", "cudacore")
     params_h = ser.unflatten_like(params, {
         n: t.cpu() for n, t in ser.flatten_state(params).items()})
     del params
@@ -1138,6 +1244,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     for name, n in want.items():
         need(counted[name] == n,
              f"{arch}: {counted[name]} {name} launches, expected {n}")
+    _need_variant(counted, arch, "wgmma")
     need(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
          f"{arch}: tokens out of range")
     gen = generate(params, cfg, prompt, NEW, cache_len=CACHE_LEN, device=dev)
@@ -1191,9 +1298,16 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     params32 = ser.unflatten_like(template, {
         n: t.to(dev).to(torch.float32) for n, t in host.items()})
     del host, template
+    # the float32 serving path: its own counts, through the CUDA-core forward
+    _lib.reset_launches()
     tok32, _, _, _, logits32 = _decode_run(
         params32, cfg32, make_prefill(cfg32, cache_len=CACHE_LEN, device=dev),
         make_decode_step(cfg32, device=dev), prompt, keep_logits=True)
+    launches[f"serve_{arch}_f32"] = c32 = dict(_lib.LAUNCHES)
+    need(c32["flash_attention_fwd_cudacore"] == n_attn,
+         f"{arch} float32: {c32['flash_attention_fwd_cudacore']} CUDA-core "
+         f"forward launches, expected {n_attn}")
+    _need_variant(c32, f"{arch} float32", "cudacore")
     with torch.no_grad():
         seq = torch.cat([prompt, tok32[:, :-1]], dim=1)     # (B, PROMPT+NEW-1)
         hidden, _ = forward(params32, cfg32, seq, return_hidden=True)
@@ -1235,8 +1349,8 @@ def ptxas_summary(report: dict) -> dict:
         if not names:
             continue
         names.sort(key=len)
-        dtype = "bf16" if "__nv_bfloat16" in mangled else \
-            "f16" if "6__half" in mangled else "f32"
+        dtype = "bf16" if "__nv_bfloat16" in mangled or "wgmma" in names[0] \
+            else "f16" if "6__half" in mangled else "f32"
         ints = re.findall(r"Li(\d+)E", mangled)
         out[f"{names[0]}<{','.join([dtype, *ints])}>"] = info
     return out
@@ -1251,10 +1365,20 @@ KERNELS = {
                  "src/repro/kernels/quantize/quantize.py:53"),
     "dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
                    "src/repro/kernels/quantize/quantize.py:62"),
-    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention/flash_attention.py:65"),
-    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                            "src/repro/kernels/flash_attention/flash_attention.py:156"),
+    # rows 5 and 6 have two variants, chosen by dtype: bfloat16 on the
+    # tensor cores (wgmma), float32 on the CUDA cores
+    "flash_attention_fwd_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:65"),
+    "flash_attention_fwd_cudacore": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:65"),
+    "flash_attention_dkv_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:156"),
+    "flash_attention_dkv_cudacore": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:156"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                            "src/repro/kernels/flash_attention/flash_attention.py:201"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1287,11 +1411,16 @@ def main() -> int:
     _lib.library()
     print(f"kernel build+load: {_lib.build_seconds():.1f} s", flush=True)
     ptxas = ptxas_summary(_lib.ptxas_report())
-    print(json.dumps({"ptxas": ptxas}), flush=True)
+    lib = _lib.library()
+    # the tensor-core kernels' dynamic shared memory, beside ptxas's counts
+    wgmma_smem = {f"{p}_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_wgmma_smem")(hd)
+                  for p in ("fwd", "dkv") for hd in _lib.HEAD_DIMS}
+    print(json.dumps({"ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem}),
+          flush=True)
     cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)
     launches: dict[str, dict] = {}
     results: dict = {"card": card, "build_s": _lib.build_seconds(),
-                     "ptxas": ptxas,
+                     "ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem,
                      "config": {"name": cfg.name, "n_layers": cfg.n_layers,
                                 "d_model": cfg.d_model}}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1358,6 +1487,7 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"],
                      "shape": k["shape"], "dtype": k["dtype"],
+                     "tflops": k.get("tflops"), "kernel": k.get("kernel"),
                      "cases": k.get("cases"), "card": card})
         if rows[-1]["launches"] <= 0:
             print(f"chip_smoke: {name} never launched on the main path",

@@ -42,7 +42,15 @@ LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
                             "dequantize": 0, "flash_attention_fwd": 0,
                             "flash_attention_dkv": 0, "flash_attention_dq": 0,
                             "decode_attention": 0, "ssm_scan": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0,
+                            # the two variants of the forward and the dkv
+                            # pass (each launch counts under its pass too):
+                            # bfloat16 on the tensor cores, float32 on the
+                            # CUDA cores
+                            "flash_attention_fwd_wgmma": 0,
+                            "flash_attention_fwd_cudacore": 0,
+                            "flash_attention_dkv_wgmma": 0,
+                            "flash_attention_dkv_cudacore": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -74,6 +82,9 @@ _SIGNATURES = {
     #  window, scale, stream)
     "spot_flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P),
+    # (hd) -> dynamic shared memory bytes of the bf16 tensor-core kernels
+    "spot_flash_attention_fwd_wgmma_smem": (_I32,),
+    "spot_flash_attention_dkv_wgmma_smem": (_I32,),
     # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
     "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _F32, _P),
@@ -190,8 +201,9 @@ def build_seconds() -> float | None:
 
 
 def ptxas_report() -> dict[str, dict[str, int]]:
-    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
-    from the ``ptxas -v`` output of the library's build."""
+    """{mangled kernel name: {"registers", "smem", "spill_stores",
+    "spill_loads"}} from the ``ptxas -v`` output of the library's build
+    ("smem": static shared memory only; the flash kernels' is dynamic)."""
     log = BUILD_DIR / f"libspot_kernels-{_digest()}.ptxas.log"
     out: dict[str, dict[str, int]] = {}
     name = None
@@ -210,6 +222,9 @@ def ptxas_report() -> dict[str, dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem"] = int(m.group(1))
     return out
 
 

@@ -12,37 +12,67 @@
 // dQ += dS K), against 2 * hd loaded values per row, far above the card's
 // ~295 operations per byte; their floor is the FLOPs over the tensor-core
 // rate (a fused one-pass backward needs five products for both, not
-// seven). This first version runs every product on the CUDA cores in
-// float32 (IEEE fmaf, never TF32), well above that floor; tensor-core
-// tiles are later work.
+// seven), reachable only through wgmma.
 //
-// Design. Both passes recompute P = exp(S - lse) from the scaled q (q is
-// widened to float32, then scaled, as the forward does) and
-// dS = P * (dP - D). Masked pairs get P = 0, and tiles with no visible
-// pair (past the causal frontier, wholly outside the window) are
-// skipped, as the reference's _visible skips them. No atomics: a resume is
-// bit-exact only if every gradient is the same from run to run.
+// Both passes recompute P = exp(S - lse) and dS = P * (dP - D). Masked
+// pairs get P = 0, and tiles with no visible pair (past the causal
+// frontier, wholly outside the window) are skipped, as the reference's
+// _visible skips them. No atomics: every output has one writer, so a
+// resume is bit-exact (every gradient is the same from run to run).
+//
+// dkv in bfloat16: flash_dkv_wgmma_kernel, on the tensor cores. One CTA of
+// two warpgroups per (64-key tile, query head, batch) walks the q tiles of
+// 64 rows that can see it, everything in the transposed form so that the
+// key rows are every product's M dimension: S^T = K Q^T and
+// dP^T = V dO^T (SS wgmma, bf16 operands, float32 sums), then
+// P^T = exp(S^T * scale - lse) (the scale applied in float32 after the
+// product) and dS^T = P^T (dP^T - D) on the fragment in registers, then
+// dV += P^T dO and dK += dS^T Q (RS wgmma, the fragment as A, dO and Q
+// read transposed). P^T and dS^T go in as bf16 hi + lo pairs (hi =
+// bf16(x), lo = bf16(x - hi)), two products into one float32
+// accumulator: rounded once to bf16 they miss the gradient tolerance by
+// 6.5-10.5x; split, the error uses about 1-2% of it. dK is multiplied by
+// the scale once at the end, in float32. The crux is registers at hd 256:
+// dK and dV of 64 keys x 256 columns in float32 are 128 registers a thread
+// each over one warpgroup. Here the two warpgroups split the head
+// dimension in halves for dK and dV (64 + 64 accumulator registers each)
+// and each computes the whole S^T and dP^T itself (K-dim hd): the two
+// halves need no exchange through shared memory and no barrier between
+// the warpgroups beyond the tile loads, at the price of computing S^T and
+// dP^T twice (8 units of tensor work per pair instead of 6 with the split;
+// the other fitting design, dK accumulated in shared memory, was not
+// built). Shared memory at hd 256: K and V 64 KB, Q and dO in two stages
+// 128 KB (cp.async while the previous tile computes), lse and D; one CTA
+// of 256 threads per SM. hd 64 and 96 are zero-padded to 128 in shared
+// memory (zeros add nothing; padded columns are never stored). dK and dV
+// are written once, in float32, per *query* head: (B, Skv, H, hd); the
+// wrapper sums them over each KV head's group, as the reference does.
+//
+// dkv in float32, and dq in both dtypes: on the CUDA cores in float32
+// (IEEE fmaf, never TF32), their bound shared-memory loads well above the
+// floor. q is widened to float32, then scaled, as the forward does.
 //  * dkv: one CTA of 8 warps per (key tile, query head, batch) walks the
 //    q tiles that can see it. dK and dV of the tile stay in registers (warp
-//    w owns keys w, w + 8, ...; lane j owns columns j, j + 32, ...) and are
-//    written once, in float32, per *query* head: (B, Skv, H, hd). The
-//    wrapper sums them over each KV head's group, as the reference does.
+//    w owns keys w, w + 8, ...; lane j owns columns j, j + 32, ...).
 //  * dq: one CTA per (q tile, query head, batch) walks the visible key
 //    tiles; warp w owns q rows (its own rows of dS, so only a __syncwarp
 //    lies between computing dS and reading it back) and writes dq * scale
 //    in q's type.
-// Tiles are float32 in shared memory; K and V rows are padded to hd + 1
-// floats, so lane j reading key j's column d hits bank (j + d) % 32. At
-// head dim 256 a 64-row set of K, V, Q and dO tiles would not fit in the
+// Their tiles are float32 in shared memory; K and V rows are padded to
+// hd + 1 floats, so lane j reading key j's column d hits bank (j + d) % 32.
+// At head dim 256 a 64-row set of K, V, Q and dO tiles would not fit in the
 // 227 KB a block may use, so the tiles there are 32 rows (137 KB for dkv);
-// at hd <= 128 they are 64 rows (161 KB at hd 128). Both passes opt into
-// that much dynamic shared memory and run one CTA per SM.
+// at hd <= 128 they are 64 rows (161 KB at hd 128). Both opt into that
+// much dynamic shared memory and run one CTA per SM.
 //
 // Shapes: q, do (B, Sq, H, hd); k, v (B, Skv, KV, hd); lse, dsum (B, H, Sq)
 // float32; dk, dv out (B, Skv, H, hd) float32; dq out like q. Sq and Skv
 // are multiples of 64 (the wrapper pads), hd is 64, 96, 128 or 256,
-// H % KV == 0. Built for float32 and bfloat16.
+// H % KV == 0.
 #include "common.cuh"
+#include "wgmma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -298,6 +328,164 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dkv in bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc = spot::tc;
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_B = 64;              // keys per CTA, q rows per tile
+constexpr int TC_THREADS = 256;       // two warpgroups
+
+template <int HD>
+struct TcDkv {
+  static constexpr int HDP = HD <= 128 ? 128 : 256;   // padded head dim
+  static constexpr int NBW = HDP / 128;  // 64-column blocks of dK, dV per warpgroup
+  static constexpr int TILE = TC_B * HDP * 2;          // bytes
+  // K, V; Q and dO in two stages; lse and D in two stages; alignment
+  static constexpr int SMEM = 6 * TILE + 2 * 2 * TC_B * 4 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ dsum,
+                       float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                       int Skv, int H, int KV, int causal, int window, float scale) {
+  using C = TcDkv<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + C::TILE;
+  const uint32_t sQ = base + 2 * C::TILE, sdO = base + 4 * C::TILE;  // + st * TILE
+  float* stat = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * C::TILE);
+  const uint32_t sStat = base + 6 * C::TILE;    // stage st: lse at + 512 st, D + 256
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int k_lo = kt * TC_B, k_hi = k_lo + TC_B - 1;
+  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
+
+  // the q tiles with a row that sees some key of this tile: [qt0, qt1)
+  const int nqt = Sq / TC_B;
+  const int qt0 = causal ? k_lo / TC_B : 0;
+  const int qt1 = window ? min(nqt, (k_hi + window - 1) / TC_B + 1) : nqt;
+
+  const long long kv_off = ((long long)b * Skv + k_lo) * kvs + (long long)kvh * HD;
+  tc::load_tile<TC_B, C::HDP, TC_THREADS>(sK, k + kv_off, kvs, TC_B, HD, tid);
+  tc::load_tile<TC_B, C::HDP, TC_THREADS>(sV, v + kv_off, kvs, TC_B, HD, tid);
+  auto load_q = [&](int qt, int st) {
+    const long long off = ((long long)b * Sq + qt * TC_B) * qs + (long long)h * HD;
+    tc::load_tile<TC_B, C::HDP, TC_THREADS>(sQ + st * C::TILE, q + off, qs, TC_B, HD, tid);
+    tc::load_tile<TC_B, C::HDP, TC_THREADS>(sdO + st * C::TILE, dout + off, qs, TC_B, HD,
+                                            tid);
+    if (tid < 32) {  // 64 lse and 64 D values, 16 bytes a thread
+      const long long row = ((long long)b * H + h) * Sq + qt * TC_B + (tid & 15) * 4;
+      tc::cp_async16(sStat + st * 512 + (tid >> 4) * 256 + (tid & 15) * 16,
+                     (tid < 16 ? lse : dsum) + row, true);
+    }
+  };
+  if (qt0 < qt1) load_q(qt0, 0);
+  tc::cp_async_commit();
+
+  float dka[C::NBW][32], dva[C::NBW][32];
+#pragma unroll
+  for (int n = 0; n < C::NBW; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[n][i] = dva[n][i] = 0.f;
+  const int key0 = k_lo + warp * 16 + (lane >> 2);  // and key0 + 8
+
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < qt1) load_q(qt + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    tc::fence_async_smem();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T over the whole head dimension
+    const uint32_t q_t = sQ + st * C::TILE, do_t = sdO + st * C::TILE;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::fence();
+#pragma unroll
+    for (int kk = 0; kk < C::HDP / 16; ++kk)
+      tc::mma_ss(s, tc::desc_k<TC_B>(sK, kk), tc::desc_k<TC_B>(q_t, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C::HDP / 16; ++kk)
+      tc::mma_ss(dp, tc::desc_k<TC_B>(sV, kk), tc::desc_k<TC_B>(do_t, kk), kk > 0);
+    tc::commit();
+    tc::wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    // P^T and dS^T on the fragment: key rows key0 (+ 8), q columns
+    const float* lse_s = stat + st * 128;
+    const float* dsum_s = lse_s + 64;
+    const int q_lo = qt * TC_B;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * ((i >> 1) & 1);
+      const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1), qpos = q_lo + c;
+      bool ok = true;
+      if (causal) ok = ok && key <= qpos;
+      if (window) ok = ok && key > qpos - window;
+      const float p = ok ? expf(s[i] * scale - lse_s[c]) : 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - dsum_s[c]);
+    }
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+    tc::split_frag(s, ph, pl);
+    tc::split_frag(dp, dh, dl);
+
+    // dV += P^T dO, dK += dS^T Q on this warpgroup's half of the columns
+    tc::fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_B / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < C::NBW; ++n) {
+        const int nb = wg * C::NBW + n;
+        const uint64_t d_do = tc::desc_mn<TC_B>(do_t, kk, nb);
+        const uint64_t d_q = tc::desc_mn<TC_B>(q_t, kk, nb);
+        tc::mma_rs(dva[n], ph[kk], d_do);
+        tc::mma_rs(dva[n], pl[kk], d_do);
+        tc::mma_rs(dka[n], dh[kk], d_q);
+        tc::mma_rs(dka[n], dl[kk], d_q);
+      }
+    tc::commit();
+    tc::wait<0>();
+#pragma unroll
+    for (int n = 0; n < C::NBW; ++n) {
+      tc::fence_regs(dva[n]);
+      tc::fence_regs(dka[n]);
+    }
+    __syncthreads();  // both warpgroups are done with this stage
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long o = (((long long)b * Skv + key0 + 8 * r) * H + h) * HD;
+#pragma unroll
+    for (int n = 0; n < C::NBW; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (wg * C::NBW + n) * 64 + 8 * j + 2 * (lane & 3);
+        if (col < HD) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<float2*>(dk + o + col) =
+              make_float2(dka[n][i] * scale, dka[n][i + 1] * scale);
+          *reinterpret_cast<float2*>(dv + o + col) = make_float2(dva[n][i], dva[n][i + 1]);
+        }
+      }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *dsum;
   void *dq, *dk, *dv;
@@ -343,10 +531,31 @@ int launch_dq(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_dkv_wgmma(const Args& a, cudaStream_t s) {
+  constexpr int smem = TcDkv<HD>::SMEM;
+  if (a.Sq % TC_B || a.Skv % TC_B) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_dkv_wgmma_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.Skv / TC_B, a.H, a.B);
+  kern<<<grid, TC_THREADS, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.KV,
+      a.causal, a.window, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bfloat16 dkv on the tensor cores; float32 dkv and dq in both dtypes on
+// the CUDA cores: a fixed choice by dtype
 template <typename T, int HD, bool DKV>
 int launch(const Args& a, cudaStream_t s) {
-  if constexpr (DKV) return launch_dkv<T, HD>(a, s);
-  else return launch_dq<T, HD>(a, s);
+  if constexpr (!DKV) return launch_dq<T, HD>(a, s);
+  else if constexpr (std::is_same_v<T, bf16>) return launch_dkv_wgmma<HD>(a, s);
+  else return launch_dkv<T, HD>(a, s);
 }
 
 template <typename T, bool DKV>
@@ -391,4 +600,15 @@ extern "C" int spot_flash_attention_dq(
   const Args a{q, k, v, dout, lse, dsum, dq, nullptr, nullptr,
                B, Sq, Skv, H, KV, causal, window, scale};
   return dispatch<false>(hd, dtype_code, a, stream);
+}
+
+// dynamic shared memory of the bf16 tensor-core dkv pass at head dim hd
+extern "C" int spot_flash_attention_dkv_wgmma_smem(int hd) {
+  switch (hd) {
+    case 64: return TcDkv<64>::SMEM;
+    case 96: return TcDkv<96>::SMEM;
+    case 128: return TcDkv<128>::SMEM;
+    case 256: return TcDkv<256>::SMEM;
+    default: return -1;
+  }
 }

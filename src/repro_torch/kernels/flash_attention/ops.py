@@ -164,6 +164,13 @@ def _dims(q, k):
     return B, Sq, Skv, H, KV, hd
 
 
+def _variant(q) -> str:
+    """The kernel a dtype selects, fixed: bfloat16 runs the forward and the
+    dkv pass on the tensor cores (wgmma), float32 on the CUDA cores; the
+    C entry points dispatch on the same dtype code."""
+    return "wgmma" if q.dtype == torch.bfloat16 else "cudacore"
+
+
 def _launch_fwd(q, k, v, causal, window):
     q, k, v = _operands("flash_attention_fwd", q, k, v)
     B, Sq, Skv, H, KV, hd = _dims(q, k)
@@ -177,6 +184,7 @@ def _launch_fwd(q, k, v, causal, window):
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_fwd")
     _lib.LAUNCHES["flash_attention_fwd"] += 1
+    _lib.LAUNCHES["flash_attention_fwd_" + _variant(q)] += 1
     return o, lse
 
 
@@ -201,6 +209,7 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, causal: bool = True,
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_dkv")
     _lib.LAUNCHES["flash_attention_dkv"] += 1
+    _lib.LAUNCHES["flash_attention_dkv_" + _variant(q)] += 1
     return dk, dv
 
 

@@ -179,6 +179,11 @@ FLASH_GPU_CASES = [
     (1, 77, 4, 2, 256, 16, torch.float32),        # padding path, window
     (1, 128, 8, 4, 128, 0, torch.bfloat16),
     (2, 64, 2, 2, 64, 0, torch.float32),         # one block, KV = H
+    # Sq a multiple of 64 but not of 128: the tensor-core forward's last
+    # 128-row tile is half filled
+    (1, 192, 4, 1, 256, 0, torch.bfloat16),
+    (2, 448, 32, 32, 96, 0, torch.bfloat16),      # phi3-mini's heads
+    (1, 320, 4, 2, 64, 64, torch.bfloat16),
 ]
 
 
@@ -199,13 +204,44 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
 
 
-def test_flash_attention_kernel_non_causal_aligned(cuda):
-    q = randn((1, 128, 2, 64), torch.float32, 1, cuda)
-    k = randn((1, 192, 1, 64), torch.float32, 2, cuda)
+@pytest.mark.parametrize("Sq,Skv,hd,dtype", [
+    (128, 192, 64, torch.float32), (192, 128, 256, torch.bfloat16),
+    (64, 320, 96, torch.bfloat16)])
+def test_flash_attention_kernel_non_causal_aligned(cuda, Sq, Skv, hd, dtype):
+    q = randn((1, Sq, 2, hd), dtype, 1, cuda)
+    k = randn((1, Skv, 1, hd), dtype, 2, cuda)
     o, lse = flash_attention_fwd(q, k, k, False, 0)
     want, want_lse = attention_ref(q, k, k, causal=False)
-    torch.testing.assert_close(o, want, atol=2e-5, rtol=0)
+    atol, rtol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_forward_is_deterministic(cuda):
+    q = randn((2, 320, 4, 256), torch.bfloat16, 5, cuda)
+    k, v = (randn((2, 320, 1, 256), torch.bfloat16, s, cuda) for s in (6, 7))
+    first = flash_attention_fwd(q, k, v, True, 0)
+    again = flash_attention_fwd(q, k, v, True, 0)
+    assert all(same_bits(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float32, "cudacore")])
+def test_flash_kernels_route_by_dtype(cuda, dtype, variant):
+    """bf16 runs the forward and the dkv pass on the tensor cores, float32
+    on the CUDA cores; every launch also counts under its pass."""
+    q, do = (randn((1, 128, 4, 128), dtype, s, cuda) for s in (1, 2))
+    k, v = (randn((1, 128, 1, 128), dtype, s, cuda) for s in (3, 4))
+    other = "cudacore" if variant == "wgmma" else "wgmma"
+    before = dict(_lib.LAUNCHES)
+    o, lse = flash_attention_fwd(q, k, v, True, 0)
+    flash_attention_bwd(q, k, v, o, lse, do, True, 0)
+    torch.cuda.synchronize()
+    for p in ("fwd", "dkv"):
+        name = f"flash_attention_{p}"
+        assert _lib.LAUNCHES[name] == before[name] + 1
+        assert _lib.LAUNCHES[f"{name}_{variant}"] == before[f"{name}_{variant}"] + 1
+        assert _lib.LAUNCHES[f"{name}_{other}"] == before[f"{name}_{other}"]
 
 
 DECODE_GPU_CASES = [
@@ -331,18 +367,25 @@ def test_flash_attention_backward_kernels_match_plain(cuda, B, S, H, KV, hd,
         assert_grad_close(g, w, name)
 
 
-@pytest.mark.parametrize("hd,window", [(256, 0), (96, 0), (64, 32)])
+@pytest.mark.parametrize("hd,window,dtype", [
+    (256, 0, torch.float32), (96, 0, torch.float32), (64, 32, torch.float32),
+    # the tensor-core dkv pass on its own
+    (64, 0, torch.bfloat16), (96, 0, torch.bfloat16), (128, 0, torch.bfloat16),
+    (256, 0, torch.bfloat16), (64, 32, torch.bfloat16),
+    (96, 100, torch.bfloat16), (128, 64, torch.bfloat16),
+    (256, 100, torch.bfloat16)])
 def test_flash_attention_backward_passes_match_their_plain_versions(cuda, hd,
-                                                                    window):
+                                                                    window,
+                                                                    dtype):
     """Each pass alone on block-aligned operands: dk, dv per query head in
     float32, dq in q's dtype."""
     B, S, H, KV = 2, 192, 4, 2
-    q = randn((B, S, H, hd), torch.float32, hd, cuda)
-    k = randn((B, S, KV, hd), torch.float32, hd + 1, cuda)
-    v = randn((B, S, KV, hd), torch.float32, hd + 2, cuda)
-    do = randn((B, S, H, hd), torch.float32, hd + 3, cuda)
+    q = randn((B, S, H, hd), dtype, hd, cuda)
+    k = randn((B, S, KV, hd), dtype, hd + 1, cuda)
+    v = randn((B, S, KV, hd), dtype, hd + 2, cuda)
+    do = randn((B, S, H, hd), dtype, hd + 3, cuda)
     o, lse = flash_attention_fwd(q, k, v, True, window)
-    dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+    dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, True, window)
     wk, wv = attention_dkv_ref(q, k, v, do, lse, dsum, causal=True,
                                window=window)
