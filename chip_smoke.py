@@ -15,10 +15,10 @@ their full published configs, all with seeded weights:
                   flash-attention forward, flash decode, the selective scan
                   and the RG-LRU scan vs plain at the serving shapes; the
                   flash-attention backward (dkv, dq) at the training shapes.
-                  The forward and the dkv pass have two variants, chosen by
-                  dtype: bfloat16 on the tensor cores (wgmma), float32 on
-                  the CUDA cores; each is held, timed (with its TFLOP/s)
-                  and listed as a row of its own
+                  The forward, the dkv and the dq pass have two variants,
+                  chosen by dtype: bfloat16 on the tensor cores (wgmma),
+                  float32 on the CUDA cores; each is held, timed (with its
+                  TFLOP/s) and listed as a row of its own
   delta           delta saves of the full-width state at 1% and 5% block
                   churn: exact d2h accounting, bit-identical restore
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
@@ -42,10 +42,11 @@ their full published configs, all with seeded weights:
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
-flash forward and dkv launches must have gone through the tensor-core
+flash forward, dkv and dq launches must have gone through the tensor-core
 variants, and the float32 runs (the one-period gradient check, the float32
-decode against teacher forcing) through the CUDA-core ones. Prints the card's name and power
-limit, one ``{"kernels": [...]}`` line, and as its last line
+decode against teacher forcing) through the CUDA-core ones. Prints the
+card's name and power limit, ``ptxas``'s registers, spills and warnings,
+one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if any
 phase fails or no GPU is present.
 
@@ -563,7 +564,7 @@ def training_kernels(dev) -> dict:
              for _ in range(2))
     k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(bf)
             for _ in range(2))
-    dkv_cases, dkv32_cases, dq_cases = {}, {}, {}
+    dkv_cases, dkv32_cases, dq_cases, dq32_cases = {}, {}, {}, {}
     for window in (512, 0):
         name = f"window_{window}" if window else "global"
         o, lse = flash_attention_fwd(q, k, v, True, window)
@@ -597,16 +598,26 @@ def training_kernels(dev) -> dict:
         in_bytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2
                     + lse.numel() * 4 * 2)                # q, do, k, v, lse, D
         out_bytes = B * S * H * hd * 4 * 2     # dk, dv per query head, float32
+        in32 = (q.numel() * 2 + k.numel() * 2) * 4 + lse.numel() * 4 * 2
         ms32 = time_ms(lambda: flash_attention_dkv(*args32, True, window))
+        lib32 = _sdpa_bwd_ms(*a32, window)
+        common32 = dict(library_ms=lib32, tol=GRAD_TOL, shape=[B, S, H, KV, hd],
+                        window=window, dtype="float32", kernel="CUDA cores",
+                        library="SDPA backward (both passes)")
         dkv32_cases[name] = dict(
             ms=ms32, plain_ms=time_ms(lambda: attention_dkv_ref(
                 *args32, causal=True, window=window), reps=3),
-            library_ms=_sdpa_bwd_ms(*a32, window), max_abs_err=f32_err_dkv,
-            bound=bound((q.numel() * 2 + k.numel() * 2) * 4
-                        + lse.numel() * 4 * 2 + out_bytes, pairs * hd * 8),
-            tflops=pairs * hd * 8 / ms32 / 1e9, tol=GRAD_TOL,
-            shape=[B, S, H, KV, hd], window=window, dtype="float32",
-            kernel="CUDA cores", library="SDPA backward (both passes)")
+            max_abs_err=f32_err_dkv,
+            bound=bound(in32 + out_bytes, pairs * hd * 8),
+            tflops=pairs * hd * 8 / ms32 / 1e9, **common32)
+        ms32 = time_ms(lambda: flash_attention_dq(*args32, True, window))
+        dq32_cases[name] = dict(
+            ms=ms32, plain_ms=time_ms(lambda: attention_dq_ref(
+                *args32, causal=True, window=window), reps=3),
+            max_abs_err=f32_err_dq,
+            # S, dP, dQ: 6 FLOPs per pair and head dim; dq written in float32
+            bound=bound(in32 + q.numel() * 4, pairs * hd * 6),
+            tflops=pairs * hd * 6 / ms32 / 1e9, **common32)
         del a32, o32, lse32, ds32, args32
         common = dict(library_ms=_sdpa_bwd_ms(q, k, v, do, window),
                       shape=[B, S, H, KV, hd], window=window,
@@ -623,19 +634,22 @@ def training_kernels(dev) -> dict:
                         BF16_FLOPS_PER_S),
             tflops=pairs * hd * 8 / ms / 1e9, kernel="wgmma (tensor cores)",
             **common)
+        ms = time_ms(lambda: flash_attention_dq(*args, True, window))
         dq_cases[name] = dict(
-            ms=time_ms(lambda: flash_attention_dq(*args, True, window)),
-            plain_ms=time_ms(lambda: attention_dq_ref(
+            ms=ms, plain_ms=time_ms(lambda: attention_dq_ref(
                 *args, causal=True, window=window), reps=3),
             max_abs_err=err_dq, f32_max_abs_err=f32_err_dq,
             # S, dP, dQ: three products, 6 FLOPs per pair and head dim
             bound=bound(in_bytes + q.numel() * 2, pairs * hd * 6,
-                        BF16_FLOPS_PER_S), **common)
+                        BF16_FLOPS_PER_S),
+            tflops=pairs * hd * 6 / ms / 1e9, kernel="wgmma (tensor cores)",
+            **common)
         del o, lse, dsum, args
     del q, k, v, do
     torch.cuda.empty_cache()
 
-    # the tensor-core dkv pass at phi3-mini's heads (32 of 96), PHI3_S tokens
+    # the tensor-core dkv and dq passes at phi3-mini's heads (32 of 96),
+    # PHI3_S tokens
     qp, dop, kp, vp = (torch.randn((1, PHI3_S, 32, 96), generator=g,
                                    device=dev).to(bf) for _ in range(4))
     o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
@@ -645,17 +659,28 @@ def training_kernels(dev) -> dict:
               for n, x, y in zip(("dk", "dv"),
                                  flash_attention_dkv(*args, True, 0),
                                  attention_dkv_ref(*args, causal=True)))
+    err_dq = _grad_check("dq phi3_hd96", flash_attention_dq(*args, True, 0),
+                         attention_dq_ref(*args, causal=True))
     pairs = 32 * _pairs(PHI3_S, 0)
+    common = dict(library_ms=_sdpa_bwd_ms(qp, kp, vp, dop, 0),
+                  kernel="wgmma (tensor cores)", shape=[1, PHI3_S, 32, 32, 96],
+                  window=0, dtype="bfloat16", tol=GRAD_TOL,
+                  library="SDPA backward (both passes)")
     ms = time_ms(lambda: flash_attention_dkv(*args, True, 0))
     dkv_cases["phi3_hd96"] = dict(
         ms=ms, plain_ms=time_ms(lambda: attention_dkv_ref(*args, causal=True),
-                                reps=3),
-        library_ms=_sdpa_bwd_ms(qp, kp, vp, dop, 0), max_abs_err=err,
+                                reps=3), max_abs_err=err,
         bound=bound(qp.numel() * 8 + lse.numel() * 8 + qp.numel() * 8,
                     pairs * 96 * 8, BF16_FLOPS_PER_S),
-        tflops=pairs * 96 * 8 / ms / 1e9, kernel="wgmma (tensor cores)",
-        shape=[1, PHI3_S, 32, 32, 96], window=0, dtype="bfloat16", tol=GRAD_TOL,
-        library="SDPA backward (both passes)")
+        tflops=pairs * 96 * 8 / ms / 1e9, **common)
+    ms = time_ms(lambda: flash_attention_dq(*args, True, 0))
+    dq_cases["phi3_hd96"] = dict(
+        ms=ms, plain_ms=time_ms(lambda: attention_dq_ref(*args, causal=True),
+                                reps=3), max_abs_err=err_dq,
+        # q, do, k, v, lse, D read; dq written in bf16
+        bound=bound(qp.numel() * 2 * 5 + lse.numel() * 8, pairs * 96 * 6,
+                    BF16_FLOPS_PER_S),
+        tflops=pairs * 96 * 6 / ms / 1e9, bf16_ulps=2, **common)
     del qp, kp, vp, dop, o, lse, dsum, args
     torch.cuda.empty_cache()
 
@@ -683,8 +708,10 @@ def training_kernels(dev) -> dict:
                 dkv_cases["global"], cases=dkv_cases, checks=extra),
             "flash_attention_dkv_cudacore": dict(
                 dkv32_cases["global"], cases=dkv32_cases, checks=extra),
-            "flash_attention_dq": dict(dq_cases["global"], cases=dq_cases,
-                                       checks=extra)}
+            "flash_attention_dq_wgmma": dict(dq_cases["global"], cases=dq_cases,
+                                             checks=extra),
+            "flash_attention_dq_cudacore": dict(
+                dq32_cases["global"], cases=dq32_cases, checks=extra)}
 
 
 def sm_clock_mhz() -> float:
@@ -925,9 +952,10 @@ def _loop_summary(rep, wall_s) -> dict:
 
 
 def _need_variant(counted: dict, what: str, variant: str) -> None:
-    """Every flash forward and dkv launch of a run went through ``variant``:
-    "wgmma" (bfloat16, the tensor cores) or "cudacore" (float32)."""
-    for p in ("fwd", "dkv"):
+    """Every flash forward, dkv and dq launch of a run went through
+    ``variant``: "wgmma" (bfloat16, the tensor cores) or "cudacore"
+    (float32)."""
+    for p in ("fwd", "dkv", "dq"):
         k = f"flash_attention_{p}"
         need(counted[f"{k}_{variant}"] == counted[k],
              f"{what}: {counted[f'{k}_{variant}']} of {counted[k]} {k} "
@@ -1092,7 +1120,8 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     card_s = time.perf_counter() - t0
     launches["train_gemma3_f32"] = c32 = dict(_lib.LAUNCHES)
     n_attn32 = sum(k in ("global", "local") for k in cfg32.layer_kinds())
-    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_cudacore"):
+    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_cudacore",
+              "flash_attention_dq_cudacore"):
         need(c32[k] == n_attn32, f"train_gemma3 float32: {c32[k]} {k} "
                                  f"launches, expected {n_attn32}")
     _need_variant(c32, "train_gemma3 float32", "cudacore")
@@ -1365,7 +1394,7 @@ KERNELS = {
                  "src/repro/kernels/quantize/quantize.py:53"),
     "dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
                    "src/repro/kernels/quantize/quantize.py:62"),
-    # rows 5 and 6 have two variants, chosen by dtype: bfloat16 on the
+    # rows 5, 6 and 7 have two variants, chosen by dtype: bfloat16 on the
     # tensor cores (wgmma), float32 on the CUDA cores
     "flash_attention_fwd_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1379,8 +1408,12 @@ KERNELS = {
     "flash_attention_dkv_cudacore": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:156"),
-    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                           "src/repro/kernels/flash_attention/flash_attention.py:201"),
+    "flash_attention_dq_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:201"),
+    "flash_attention_dq_cudacore": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:201"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/decode_attention.py:30"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1414,9 +1447,9 @@ def main() -> int:
     lib = _lib.library()
     # the tensor-core kernels' dynamic shared memory, beside ptxas's counts
     wgmma_smem = {f"{p}_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_wgmma_smem")(hd)
-                  for p in ("fwd", "dkv") for hd in _lib.HEAD_DIMS}
-    print(json.dumps({"ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem}),
-          flush=True)
+                  for p in ("fwd", "dkv", "dq") for hd in _lib.HEAD_DIMS}
+    print(json.dumps({"ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem,
+                      "ptxas_warnings": _lib.ptxas_warnings()}), flush=True)
     cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)
     launches: dict[str, dict] = {}
     results: dict = {"card": card, "build_s": _lib.build_seconds(),

@@ -43,14 +43,16 @@ LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
                             "flash_attention_dkv": 0, "flash_attention_dq": 0,
                             "decode_attention": 0, "ssm_scan": 0,
                             "rglru_scan": 0,
-                            # the two variants of the forward and the dkv
-                            # pass (each launch counts under its pass too):
-                            # bfloat16 on the tensor cores, float32 on the
-                            # CUDA cores
+                            # the two variants of the forward, the dkv and
+                            # the dq pass (each launch counts under its pass
+                            # too): bfloat16 on the tensor cores, float32 on
+                            # the CUDA cores
                             "flash_attention_fwd_wgmma": 0,
                             "flash_attention_fwd_cudacore": 0,
                             "flash_attention_dkv_wgmma": 0,
-                            "flash_attention_dkv_cudacore": 0}
+                            "flash_attention_dkv_cudacore": 0,
+                            "flash_attention_dq_wgmma": 0,
+                            "flash_attention_dq_cudacore": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -85,6 +87,7 @@ _SIGNATURES = {
     # (hd) -> dynamic shared memory bytes of the bf16 tensor-core kernels
     "spot_flash_attention_fwd_wgmma_smem": (_I32,),
     "spot_flash_attention_dkv_wgmma_smem": (_I32,),
+    "spot_flash_attention_dq_wgmma_smem": (_I32,),
     # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
     "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _F32, _P),
@@ -226,6 +229,16 @@ def ptxas_report() -> dict[str, dict[str, int]]:
         if m:
             out[name]["smem"] = int(m.group(1))
     return out
+
+
+def ptxas_warnings() -> list[str]:
+    """The warnings of the library's ``ptxas`` runs, each naming the
+    kernel it concerns: a wgmma serialised around its registers or a
+    divergent path, a register limit not met."""
+    log = BUILD_DIR / f"libspot_kernels-{_digest()}.ptxas.log"
+    return [line.strip() for line in
+            (log.read_text().splitlines() if log.exists() else ())
+            if "warning" in line.lower() or "Performance Loss" in line]
 
 
 def check(err: int, what: str) -> None:

@@ -14,27 +14,50 @@
 //
 // bfloat16: flash_fwd_wgmma_kernel. One CTA of two warpgroups per
 // (128-row q tile, head, batch); each warpgroup owns 64 q rows, and both
-// share the K/V tiles of 64 keys, double-buffered in shared memory and
-// filled by cp.async while the previous tile computes (wgmma.cuh has the
-// tile layout). S = Q K^T is an SS wgmma with bf16 operands and float32
-// sums; the scale is applied to S in float32 after the product (scaling
-// bf16 q first would add a rounding). The online softmax runs on the
-// accumulator fragment in registers (row max and sum across the quad of
-// lanes sharing a row, expf, the reference's finite NEG_INF = -2**30 for
-// masked scores, a zero row sum divides by 1). O += P V is an RS wgmma with
-// P from registers and V read transposed, twice: P rounded once to bf16
-// misses the one-ulp tolerance on about 11% of the outputs, so P is split
-// into hi = bf16(P) and lo = bf16(P - hi) and both products go into the
-// same float32 accumulator (6 FLOPs per pair and head dimension instead
-// of 4). Head dims 64, 96, 128, 256: hd 96 is zero-padded to 128 inside
-// shared memory (the zeros add nothing to QK^T; the extra output columns
-// are never stored). Invisible key tiles are skipped as the reference's
-// _visible skips them, and causal q tiles launch longest rows first so the
-// causal tail does not set the pace. The wrapper pads Sq to 64, so the
-// last 128-row tile may be half filled: its missing rows load as zeros and
-// are never stored. Shared memory at hd 256: Q 64 KB + K, V in two stages
-// 128 KB; one CTA of 256 threads per SM.
-//
+// share the K/V tiles of 64 keys.
+//  * Feed. One thread issues every load as TMA (cp.async.bulk.tensor)
+//    through 4-d tensor maps (hd, heads, seq, batch) made on the host,
+//    whose box (64 columns of one head by 64 rows, 128-byte swizzle) lands
+//    in the layout wgmma reads (wgmma.cuh). Elements past the tensor
+//    arrive as zeros: the missing half of a last 128-row q tile, hd 96's
+//    columns 96-127. K and V sit in a ring of stages (two at hd 256,
+//    three below) with a full and an empty mbarrier each; a warpgroup
+//    waits on its tile's full barrier, and each warp arrives on the empty
+//    one when it is done (no block-wide barrier in the loop). The issuer
+//    is a consumer thread (ISSUER, in warpgroup 1): after each tile it
+//    waits on that stage's empty barrier, that is for warpgroup 0 to have
+//    left the tile too, before it refills the stage. So warpgroup 0 may
+//    run up to STAGES - 1 tiles ahead, and warpgroup 1 never runs ahead of
+//    warpgroup 0. Whether one's softmax overlaps the other's products was
+//    not measured (no trace of the card was taken); a producer that no
+//    consumer waits on is the next schedule to try. Two explicit schedules
+//    were measured on the card and not kept: each warpgroup issuing tile
+//    j + 1's S before tile j's softmax, and the two taking turns at issuing
+//    S (named barriers); both were slower than this one at every head dim
+//    (PERF.md, section 6).
+//  * Masks and skips. The causal/window predicate is evaluated only on a
+//    tile that straddles the diagonal or the window's lower edge, and a
+//    warpgroup skips a tile none of its rows sees.
+//  * Arithmetic. S is an SS wgmma with bf16 operands and float32 sums
+//    over the real head dimension (6 K steps at hd 96); the scale is
+//    applied in float32 after the product, folded with log2(e) into one
+//    fma: P = exp2(s * scale * log2e - m), m the running max in base-2
+//    units (the log-sum-exp is still returned as a natural log). Masked
+//    scores take the reference's finite NEG_INF = -2**30, and a zero row
+//    sum divides by 1. O += P V is an RS wgmma with P from registers and V
+//    read transposed, twice: P rounded once to bf16 misses the one-ulp
+//    tolerance on about 11% of the outputs, so P is split into
+//    hi = bf16(P) and lo = bf16(P - hi) and both products go into the same
+//    float32 accumulator (6 FLOPs per pair and head dimension instead of
+//    4). O covers the real head dimension: m64n64 blocks, plus one m64n32
+//    block at hd 96 (48 accumulator registers a thread, not 64).
+//  * Order. Invisible key tiles are skipped as the reference's _visible
+//    skips them, and causal q tiles launch longest rows first so the
+//    causal tail does not set the pace. The wrapper pads Sq to 64, so the
+//    last 128-row tile may be half filled: its second warpgroup then only
+//    keeps the barriers' count. Shared memory at hd 256: Q 64 KB + K, V in
+//    two stages 128 KB; one CTA of 256 threads per SM.
+
 // float32: flash_fwd_kernel, on the CUDA cores (IEEE fmaf, never TF32),
 // kept for the float32 checks (gradients card vs host, decode vs teacher
 // forcing). One CTA of 8 warps per (64-row q block, head, batch). The q
@@ -51,7 +74,11 @@
 //
 // Shapes: q (B, Sq, H, hd), k/v (B, Skv, KV, hd), o like q, lse (B, H, Sq)
 // float32; Sq and Skv are multiples of 64 (the wrapper pads), hd is 64, 96,
-// 128 or 256, H % KV == 0 (query head h reads KV head h / (H / KV)).
+// 128 or 256, H % KV == 0 (query head h reads KV head h / (H / KV)). The
+// bf16 kernel's q, k and v start on 16-byte boundaries (a tensor map's
+// base; the wrapper copies a view that does not).
+#include <cuda.h>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -249,25 +276,38 @@ using bf16 = __nv_bfloat16;
 constexpr int TC_BQ = 128;            // q rows per CTA: two warpgroups of 64
 constexpr int TC_BK = 64;             // keys per tile
 constexpr int TC_THREADS = 256;
+constexpr int ISSUER = 128;           // the thread that issues every TMA load
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct TcFwd {
   static constexpr int HDP = HD <= 64 ? 64 : (HD <= 128 ? 128 : 256);  // padded
-  static constexpr int NB = HDP / 64;                  // 64-column blocks of O
+  static constexpr int CB = HDP / 64;                  // 64-column blocks (TMA boxes)
+  static constexpr int NB = HD / 64;                   // m64n64 blocks of O
+  static constexpr bool N32 = HD % 64 != 0;            // + an m64n32 block (hd 96)
+  static constexpr int KSTEPS = HD / 16;               // K steps of S = Q K^T
+  static constexpr int STAGES = HD > 128 ? 2 : 3;      // K/V ring
   static constexpr int Q_TILE = 64 * HDP * 2;          // one warpgroup's Q, bytes
   static constexpr int KV_TILE = TC_BK * HDP * 2;
-  static constexpr int SMEM = 2 * Q_TILE + 4 * KV_TILE + 1024;  // + alignment
+  static constexpr int BOX = 64 * 64 * 2;              // one TMA box, bytes
+  // Q; K and V per stage; full and empty barriers per stage; alignment
+  static constexpr int SMEM = 2 * Q_TILE + STAGES * 2 * KV_TILE + STAGES * 16 + 1024;
 };
 
 template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int Sq, int Skv, int H, int KV,
-                       int causal, int window, float scale) {
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
+                       int H, int KV, int causal, int window, float scale) {
   using C = TcFwd<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                          // + wg * Q_TILE
+  const uint32_t sKV = base + 2 * C::Q_TILE;         // stage st: K, then V
+  const uint32_t full = sKV + C::STAGES * 2 * C::KV_TILE;  // + 8 st
+  const uint32_t empty = full + 8 * C::STAGES;             // + 8 st
 
   const int nqt = (Sq + TC_BQ - 1) / TC_BQ;
   const int qt = causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x;
@@ -276,155 +316,268 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = t >> 5, lane = t & 31;
   const int q_lo = qt * TC_BQ, q_rows = min(TC_BQ, Sq - q_lo);
   const int q_hi = q_lo + q_rows - 1;
+  const bool wg_live = wg * 64 < q_rows;   // a half-filled tile's second warpgroup idles
 
-  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
-  const bf16* qb = q + ((long long)b * Sq + q_lo) * qs + (long long)h * HD;
-  const bf16* kb = k + (long long)b * Skv * kvs + (long long)kvh * HD;
-  const bf16* vb = v + (long long)b * Skv * kvs + (long long)kvh * HD;
-  const uint32_t sQ = base + wg * C::Q_TILE;
-  const uint32_t sK = base + 2 * C::Q_TILE, sV = sK + 2 * C::KV_TILE;
-
-  // the key tiles some row of this q tile can see: [kt0, kt1)
+  // the key tiles some row of this q tile can see: [kt0, kt0 + n)
   const int nkt = Skv / TC_BK;
   const int kt1 = causal ? min(nkt, q_hi / TC_BK + 1) : nkt;
   const int kt0 = window ? max(0, q_lo - window + 1) / TC_BK : 0;
+  const int n = kt1 - kt0;
 
-  auto load_kv = [&](int kt, int st) {
-    const long long off = (long long)kt * TC_BK * kvs;
-    tc::load_tile<TC_BK, C::HDP, TC_THREADS>(sK + st * C::KV_TILE, kb + off, kvs,
-                                             TC_BK, HD, tid);
-    tc::load_tile<TC_BK, C::HDP, TC_THREADS>(sV + st * C::KV_TILE, vb + off, kvs,
-                                             TC_BK, HD, tid);
+  if (tid == 0) {
+    for (int st = 0; st < C::STAGES; ++st) {
+      tc::mbar_init(full + 8 * st, 1);
+      tc::mbar_init(empty + 8 * st, TC_THREADS / 32);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile j of the walk into stage j % STAGES (the first fill of stage 0
+  // carries the Q tile too)
+  const void *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+  auto issue = [&](int j) {
+    const int st = j % C::STAGES;
+    const uint32_t bar = full + 8 * st;
+    const int q_boxes = j == 0 ? (q_rows > 64 ? 2 : 1) * C::CB : 0;
+    tc::mbar_expect_tx(bar, (2 * C::CB + q_boxes) * C::BOX);
+    if (j == 0)
+      for (int w = 0; w * 64 < q_rows; ++w)
+        for (int cb = 0; cb < C::CB; ++cb)
+          tc::tma_load_4d(sQ + w * C::Q_TILE + cb * C::BOX, mq, bar, cb * 64, h,
+                          q_lo + 64 * w, b);
+    const uint32_t kt_s = sKV + st * 2 * C::KV_TILE;
+    const int row = (kt0 + j) * TC_BK;
+    for (int cb = 0; cb < C::CB; ++cb) {
+      tc::tma_load_4d(kt_s + cb * C::BOX, mk, bar, cb * 64, kvh, row, b);
+      tc::tma_load_4d(kt_s + C::KV_TILE + cb * C::BOX, mv, bar, cb * 64, kvh, row, b);
+    }
   };
-  // a warpgroup past the last row loads zeros (from a valid address)
-  tc::load_tile<64, C::HDP, 128>(sQ, wg * 64 < q_rows ? qb + (long long)wg * 64 * qs : qb,
-                                 qs, q_rows - wg * 64, HD, t);
-  if (kt0 < kt1) load_kv(kt0, 0);
-  tc::cp_async_commit();
+  if (tid == ISSUER)
+    for (int j = 0; j < min(n, C::STAGES); ++j) issue(j);
+  __syncwarp();
 
-  float acc[C::NB][32];
+  // O: 64-column blocks, and at hd 96 a 32-column block (the first 16
+  // registers of the 64-column layout)
+  float acc[C::NB][32], acc32[C::N32 ? 16 : 1];
 #pragma unroll
-  for (int n = 0; n < C::NB; ++n)
+  for (int nb = 0; nb < C::NB; ++nb)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (C::N32 ? 16 : 1); ++i) acc32[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const int row0 = q_lo + wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const uint32_t myQ = sQ + wg * C::Q_TILE;
+  const float c2 = scale * LOG2E;  // unscaled scores to base-2 exponents
+  // this warpgroup's q rows, and whether any of them sees some key of
+  // tile j: a tile none of them sees is skipped (its probabilities would
+  // be zeros, or, before the first visible key, terms that the first
+  // visible tile's rescale by exp(NEG_INF - m) = 0 wipes out exactly)
+  const int wq_lo = q_lo + wg * 64, wq_hi = wq_lo + 63;
+  auto vis = [&](int j) {
+    const int k_lo = (kt0 + j) * TC_BK;
+    return wg_live && (!causal || k_lo <= wq_hi) &&
+           (!window || k_lo + TC_BK - 1 > wq_lo - window);
+  };
 
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    if (kt + 1 < kt1) load_kv(kt + 1, st ^ 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    tc::fence_async_smem();
-    __syncthreads();
+  for (int j = 0; j < n; ++j) {
+    const int st = j % C::STAGES;
+    const uint32_t sK = sKV + st * 2 * C::KV_TILE, sV = sK + C::KV_TILE;
+    tc::mbar_wait(full + 8 * st, (j / C::STAGES) & 1);
+    if (vis(j)) {
+      // S = Q K^T, float32 sums of bf16 products
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      tc::fence();
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk)
+        tc::mma_ss(s, tc::desc_k<64>(myQ, kk), tc::desc_k<TC_BK>(sK, kk), kk > 0);
+      tc::commit();
+      tc::wait<0>();
+      tc::fence_regs(s);
 
-    // S = Q K^T, float32 sums of bf16 products
-    float s[32];
+      // mask and the online softmax on the fragment: rows row0 (r = 0)
+      // and row0 + 8 (r = 1), each shared by the quad of lanes 4 (lane / 4)
+      const int k_lo = (kt0 + j) * TC_BK;
+      float mx[2] = {NEG_INF, NEG_INF};   // the tile's row max, unscaled
+      if ((causal && k_lo + TC_BK - 1 > wq_lo) || (window && k_lo <= wq_hi - window)) {
+        // a tile across the causal diagonal or the window's lower edge
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    tc::fence();
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1, row = row0 + 8 * r;
+          const int col = k_lo + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          bool ok = true;
+          if (causal) ok = ok && col <= row;
+          if (window) ok = ok && col > row - window;
+          if (!ok) s[i] = NEG_INF;
+          mx[r] = fmaxf(mx[r], s[i]);
+        }
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < C::HDP / 16; ++kk)
-      tc::mma_ss(s, tc::desc_k<64>(sQ, kk), tc::desc_k<TC_BK>(sK + st * C::KV_TILE, kk),
-                 kk > 0);
-    tc::commit();
-    tc::wait<0>();
-    tc::fence_regs(s);
-
-    // scale, mask, online softmax on the fragment: rows row0 (r = 0) and
-    // row0 + 8 (r = 1), each shared by the quad of lanes 4 (lane / 4) ..
-    const int k_lo = kt * TC_BK;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1, row = row0 + 8 * r;
-      const int col = k_lo + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-      bool ok = true;
-      if (causal) ok = ok && col <= row;
-      if (window) ok = ok && col > row - window;
-      s[i] = ok ? s[i] * scale : NEG_INF;
-      mx[r] = fmaxf(mx[r], s[i]);
-    }
-    float rs[2] = {0.f, 0.f}, alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = expf(s[i] - m[r]);
-      rs[r] += s[i];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int n = 0; n < C::NB; ++n)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
-
-    // O += P_hi V + P_lo V
-    uint32_t ph[4][4], pl[4][4];
-    tc::split_frag(s, ph, pl);
-    tc::fence();
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < C::NB; ++n) {
-        const uint64_t dv = tc::desc_mn<TC_BK>(sV + st * C::KV_TILE, kk, n);
-        tc::mma_rs(acc[n], ph[kk], dv);
-        tc::mma_rs(acc[n], pl[kk], dv);
+        for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       }
-    tc::commit();
-    tc::wait<0>();
+      // base 2: m is the running max of s * c2 (rounding is monotonic, so
+      // the max of the products is the product of the max), and
+      // P = exp2(s * c2 - m) is one fma and one exp2
+      float rs[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-    for (int n = 0; n < C::NB; ++n) tc::fence_regs(acc[n]);
-    __syncthreads();  // every warpgroup is done with this stage
-  }
-  tc::cp_async_wait<0>();
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * c2);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = exp2f(fmaf(s[i], c2, -m[r]));
+        rs[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < C::NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[nb][i] *= alpha[(i >> 1) & 1];
+      if constexpr (C::N32) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc32[i] *= alpha[(i >> 1) & 1];
+      }
 
+      // O += P_hi V + P_lo V over the real head dimension
+      uint32_t ph[4][4], pl[4][4];
+      tc::split_frag(s, ph, pl);
+      tc::fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {
+#pragma unroll
+        for (int nb = 0; nb < C::NB; ++nb) {
+          const uint64_t dv = tc::desc_mn<TC_BK>(sV, kk, nb);
+          tc::mma_rs(acc[nb], ph[kk], dv);
+          tc::mma_rs(acc[nb], pl[kk], dv);
+        }
+        if constexpr (C::N32) {
+          const uint64_t dv = tc::desc_mn<TC_BK>(sV, kk, C::NB);
+          tc::mma_rs(acc32, ph[kk], dv);
+          tc::mma_rs(acc32, pl[kk], dv);
+        }
+      }
+      tc::commit();
+      tc::wait<0>();
+#pragma unroll
+      for (int nb = 0; nb < C::NB; ++nb) tc::fence_regs(acc[nb]);
+      if constexpr (C::N32) tc::fence_regs(acc32);
+    }
+
+    // this warp is done with the stage; once every warp is, the issuer
+    // refills it
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + 8 * st);
+    if (tid == ISSUER && j + C::STAGES < n) {
+      tc::mbar_wait(empty + 8 * st, (j / C::STAGES) & 1);
+      issue(j + C::STAGES);
+    }
+    __syncwarp();  // the issuer's warp reconverges before its next wgmma
+  }
+
+  if (!wg_live) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (row > q_hi) continue;
     const float lsum = l[r] == 0.f ? 1.f : l[r];
-    if ((lane & 3) == 0) lse[((long long)b * H + h) * Sq + row] = m[r] + logf(lsum);
-    bf16* orow = o + ((long long)b * Sq + row) * qs + (long long)h * HD;
+    if ((lane & 3) == 0)  // a natural log, as the reference's
+      lse[((long long)b * H + h) * Sq + row] = m[r] * LN2 + logf(lsum);
+    bf16* orow = o + ((long long)b * Sq + row) * ((long long)H * HD) + (long long)h * HD;
 #pragma unroll
-    for (int n = 0; n < C::NB; ++n)
+    for (int nb = 0; nb < C::NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n * 64 + 8 * j + 2 * (lane & 3);
-        if (col < HD) {
-          const int i = 4 * j + 2 * r;
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[n][i] / lsum, acc[n][i + 1] / lsum);
-        }
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = nb * 64 + 8 * jj + 2 * (lane & 3), i = 4 * jj + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[nb][i] / lsum, acc[nb][i + 1] / lsum);
       }
+    if constexpr (C::N32) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = C::NB * 64 + 8 * jj + 2 * (lane & 3), i = 4 * jj + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc32[i] / lsum, acc32[i + 1] / lsum);
+      }
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, a libcuda function, resolved once through the
+// CUDA runtime, so that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (batch, seq, heads, hd) bf16 tensor as a 4-d tensor map (innermost
+// first) whose box is 64 columns of one head by 64 sequence rows, swizzled
+// as wgmma reads it; returns 0 or the encode's CUresult
+int make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)seq * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(r);
 }
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                  int B, int Sq, int Skv, int H, int KV, int causal, int window,
                  float scale, cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, B, Sq, H, HD);
+  if (err == 0) err = make_map(&mk, k, B, Skv, KV, HD);
+  if (err == 0) err = make_map(&mv, v, B, Skv, KV, HD);
+  if (err != 0) return err;
   constexpr int smem = TcFwd<HD>::SMEM;
   auto kern = flash_fwd_wgmma_kernel<HD>;
-  cudaError_t err =
+  const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
-  kern<<<grid, TC_THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-      Sq, Skv, H, KV, causal, window, scale);
+  kern<<<grid, TC_THREADS, smem, s>>>(mq, mk, mv, static_cast<bf16*>(o),
+                                      static_cast<float*>(lse), Sq, Skv, H, KV, causal,
+                                      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

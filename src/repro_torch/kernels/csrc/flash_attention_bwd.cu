@@ -48,7 +48,30 @@
 // are written once, in float32, per *query* head: (B, Skv, H, hd); the
 // wrapper sums them over each KV head's group, as the reference does.
 //
-// dkv in float32, and dq in both dtypes: on the CUDA cores in float32
+// dq in bfloat16: flash_dq_wgmma_kernel, the dkv kernel's layout mirrored.
+// One CTA of two warpgroups per (64-row q tile, query head, batch) walks
+// the key tiles of 64 that the q tile can see (causal frontier and window;
+// causal q tiles longest first), K and V double-buffered by cp.async, Q,
+// dO, lse and D loaded once. Each warpgroup computes the whole S = Q K^T
+// and dP = dO V^T (SS wgmma over the real head dimension: 6 K steps at
+// hd 96), then P = exp(S * scale - lse) under the mask (evaluated only on
+// a tile across the causal diagonal or the window's lower edge) and
+// dS = P (dP - D) on the fragment, then dQ += dS K into its half of dQ's
+// columns (RS wgmma, K read transposed; at hd 64 the CTA is one warpgroup
+// that owns all 64 columns, so no tensor work lands past HD). dS goes in as a
+// bf16 hi + lo pair: rounded once it misses dq's bf16 tolerance by 3.4 to
+// 5.9x in the CPU emulation (tests/test_torch_flash_numerics.py), so the
+// quarter of the tensor work one product would save is not taken. dQ is
+// multiplied by the scale once, in float32, and written in bf16. Why this
+// layout rather than the forward's (128 q rows, each warpgroup owning all
+// of dQ for 64 of them): at hd 256 that needs dQ (128 floats a thread), S
+// and dP (32 each) live at once, and split by columns dQ is 64 registers;
+// it also gives 256 CTAs at gemma3's training shape, not 128 on 132 SMs.
+// The price: S and dP are computed twice, 12 units of tensor work per
+// pair and head dimension against 8 for one warpgroup per row block.
+// Shared memory at hd 256: Q, dO 64 KB + K, V in two stages 128 KB.
+//
+// dkv and dq in float32: on the CUDA cores in float32
 // (IEEE fmaf, never TF32), their bound shared-memory loads well above the
 // floor. q is widened to float32, then scaled, as the forward does.
 //  * dkv: one CTA of 8 warps per (key tile, query head, batch) walks the
@@ -56,8 +79,7 @@
 //    w owns keys w, w + 8, ...; lane j owns columns j, j + 32, ...).
 //  * dq: one CTA per (q tile, query head, batch) walks the visible key
 //    tiles; warp w owns q rows (its own rows of dS, so only a __syncwarp
-//    lies between computing dS and reading it back) and writes dq * scale
-//    in q's type.
+//    lies between computing dS and reading it back) and writes dq * scale.
 // Their tiles are float32 in shared memory; K and V rows are padded to
 // hd + 1 floats, so lane j reading key j's column d hits bank (j + d) % 32.
 // At head dim 256 a 64-row set of K, V, Q and dO tiles would not fit in the
@@ -464,7 +486,7 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc::fence_regs(dva[n]);
       tc::fence_regs(dka[n]);
     }
-    __syncthreads();  // both warpgroups are done with this stage
+    __syncthreads();  // every warpgroup is done with this stage
   }
   tc::cp_async_wait<0>();
 
@@ -481,6 +503,159 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<float2*>(dk + o + col) =
               make_float2(dka[n][i] * scale, dka[n][i + 1] * scale);
           *reinterpret_cast<float2*>(dv + o + col) = make_float2(dva[n][i], dva[n][i + 1]);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq in bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct TcDq {
+  static constexpr int NWG = HD <= 64 ? 1 : 2;         // warpgroups per CTA
+  static constexpr int THREADS = NWG * 128;
+  static constexpr int HDP = HD <= 64 ? 64 : (HD <= 128 ? 128 : 256);  // padded
+  static constexpr int NBW = HDP / (64 * NWG);  // 64-column blocks of dQ per warpgroup
+  static constexpr int KSTEPS = HD / 16;  // K steps of S and dP: no padded ones
+  static constexpr int TILE = TC_B * HDP * 2;          // bytes
+  // Q, dO; K and V in two stages; alignment
+  static constexpr int SMEM = 6 * TILE + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TcDq<HD>::THREADS, 1)
+flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dsum,
+                      bf16* __restrict__ dq, int Sq, int Skv, int H, int KV,
+                      int causal, int window, float scale) {
+  using C = TcDq<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + C::TILE;
+  const uint32_t sK = base + 2 * C::TILE, sV = base + 4 * C::TILE;  // + st * TILE
+
+  // causal: the q tiles with the most visible keys launch first
+  const int nqt = Sq / TC_B;
+  const int qt = causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int q_lo = qt * TC_B, q_hi = q_lo + TC_B - 1;
+  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
+
+  // the key tiles some row of this q tile can see: [kt0, kt1)
+  const int nkt = Skv / TC_B;
+  const int kt1 = causal ? min(nkt, q_hi / TC_B + 1) : nkt;
+  const int kt0 = window ? max(0, q_lo - window + 1) / TC_B : 0;
+
+  const long long q_off = ((long long)b * Sq + q_lo) * qs + (long long)h * HD;
+  tc::load_tile<TC_B, C::HDP, C::THREADS>(sQ, q + q_off, qs, TC_B, HD, tid);
+  tc::load_tile<TC_B, C::HDP, C::THREADS>(sdO, dout + q_off, qs, TC_B, HD, tid);
+  const bf16* kb = k + (long long)b * Skv * kvs + (long long)kvh * HD;
+  const bf16* vb = v + (long long)b * Skv * kvs + (long long)kvh * HD;
+  auto load_kv = [&](int kt, int st) {
+    const long long off = (long long)kt * TC_B * kvs;
+    tc::load_tile<TC_B, C::HDP, C::THREADS>(sK + st * C::TILE, kb + off, kvs, TC_B, HD,
+                                            tid);
+    tc::load_tile<TC_B, C::HDP, C::THREADS>(sV + st * C::TILE, vb + off, kvs, TC_B, HD,
+                                            tid);
+  };
+  if (kt0 < kt1) load_kv(kt0, 0);
+  tc::cp_async_commit();
+
+  // this thread's rows: row0 (r = 0) and row0 + 8 (r = 1)
+  const int row0 = q_lo + warp * 16 + (lane >> 2);
+  const long long srow = ((long long)b * H + h) * Sq + row0;
+  const float lse_r[2] = {lse[srow], lse[srow + 8]};
+  const float ds_r[2] = {dsum[srow], dsum[srow + 8]};
+
+  float dqa[C::NBW][32];
+#pragma unroll
+  for (int n = 0; n < C::NBW; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[n][i] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_kv(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    tc::fence_async_smem();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T over the real head dimension
+    const uint32_t k_t = sK + st * C::TILE, v_t = sV + st * C::TILE;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk)
+      tc::mma_ss(s, tc::desc_k<TC_B>(sQ, kk), tc::desc_k<TC_B>(k_t, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk)
+      tc::mma_ss(dp, tc::desc_k<TC_B>(sdO, kk), tc::desc_k<TC_B>(v_t, kk), kk > 0);
+    tc::commit();
+    tc::wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    // P and dS on the fragment: q rows row0 (+ 8), key columns. The mask
+    // is evaluated only on a tile that straddles the causal diagonal or
+    // the window's lower edge; every pair of any other visible tile is
+    // visible.
+    const int k_lo = kt * TC_B;
+    const bool edge = (causal && k_lo + TC_B - 1 > q_lo) ||
+                      (window && k_lo <= q_hi - window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      bool ok = true;
+      if (edge) {
+        const int row = row0 + 8 * r;
+        const int key = k_lo + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (causal) ok = key <= row;
+        if (window) ok = ok && key > row - window;
+      }
+      const float p = ok ? expf(s[i] * scale - lse_r[r]) : 0.f;
+      dp[i] = p * (dp[i] - ds_r[r]);
+    }
+    uint32_t dh[4][4], dl[4][4];
+    tc::split_frag(dp, dh, dl);
+
+    // dQ += dS K on this warpgroup's columns (K read transposed)
+    tc::fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_B / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < C::NBW; ++n) {
+        const uint64_t d_k = tc::desc_mn<TC_B>(k_t, kk, wg * C::NBW + n);
+        tc::mma_rs(dqa[n], dh[kk], d_k);
+        tc::mma_rs(dqa[n], dl[kk], d_k);
+      }
+    tc::commit();
+    tc::wait<0>();
+#pragma unroll
+    for (int n = 0; n < C::NBW; ++n) tc::fence_regs(dqa[n]);
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* orow = dq + ((long long)b * Sq + row0 + 8 * r) * qs + (long long)h * HD;
+#pragma unroll
+    for (int n = 0; n < C::NBW; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (wg * C::NBW + n) * 64 + 8 * j + 2 * (lane & 3);
+        if (col < HD) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(dqa[n][i] * scale, dqa[n][i + 1] * scale);
         }
       }
   }
@@ -549,13 +724,34 @@ int launch_dkv_wgmma(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 dkv on the tensor cores; float32 dkv and dq in both dtypes on
-// the CUDA cores: a fixed choice by dtype
+template <int HD>
+int launch_dq_wgmma(const Args& a, cudaStream_t s) {
+  constexpr int smem = TcDq<HD>::SMEM;
+  if (a.Sq % TC_B || a.Skv % TC_B) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_dq_wgmma_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.Sq / TC_B, a.H, a.B);
+  kern<<<grid, TcDq<HD>::THREADS, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// both passes route by dtype alone: bfloat16 on the tensor cores, float32
+// on the CUDA cores (as the forward does)
 template <typename T, int HD, bool DKV>
 int launch(const Args& a, cudaStream_t s) {
-  if constexpr (!DKV) return launch_dq<T, HD>(a, s);
-  else if constexpr (std::is_same_v<T, bf16>) return launch_dkv_wgmma<HD>(a, s);
-  else return launch_dkv<T, HD>(a, s);
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (DKV) return launch_dkv_wgmma<HD>(a, s);
+    else return launch_dq_wgmma<HD>(a, s);
+  } else {
+    if constexpr (DKV) return launch_dkv<T, HD>(a, s);
+    else return launch_dq<T, HD>(a, s);
+  }
 }
 
 template <typename T, bool DKV>
@@ -609,6 +805,17 @@ extern "C" int spot_flash_attention_dkv_wgmma_smem(int hd) {
     case 96: return TcDkv<96>::SMEM;
     case 128: return TcDkv<128>::SMEM;
     case 256: return TcDkv<256>::SMEM;
+    default: return -1;
+  }
+}
+
+// dynamic shared memory of the bf16 tensor-core dq pass at head dim hd
+extern "C" int spot_flash_attention_dq_wgmma_smem(int hd) {
+  switch (hd) {
+    case 64: return TcDq<64>::SMEM;
+    case 96: return TcDq<96>::SMEM;
+    case 128: return TcDq<128>::SMEM;
+    case 256: return TcDq<256>::SMEM;
     default: return -1;
   }
 }

@@ -165,14 +165,23 @@ def _dims(q, k):
 
 
 def _variant(q) -> str:
-    """The kernel a dtype selects, fixed: bfloat16 runs the forward and the
-    dkv pass on the tensor cores (wgmma), float32 on the CUDA cores; the
-    C entry points dispatch on the same dtype code."""
+    """The kernel a dtype selects, fixed: bfloat16 runs all three passes
+    (the forward, dkv and dq) on the tensor cores (wgmma), float32 on the
+    CUDA cores; the C entry points dispatch on the same dtype code."""
     return "wgmma" if q.dtype == torch.bfloat16 else "cudacore"
+
+
+def _tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward reads q, k and v through TMA tensor maps, whose
+    base address must be 16-byte aligned: a view that starts elsewhere is
+    copied."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _launch_fwd(q, k, v, causal, window):
     q, k, v = _operands("flash_attention_fwd", q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _tma_aligned(q), _tma_aligned(k), _tma_aligned(v)
     B, Sq, Skv, H, KV, hd = _dims(q, k)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -232,4 +241,5 @@ def flash_attention_dq(q, k, v, do, lse, dsum, causal: bool = True,
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_dq")
     _lib.LAUNCHES["flash_attention_dq"] += 1
+    _lib.LAUNCHES["flash_attention_dq_" + _variant(q)] += 1
     return dq

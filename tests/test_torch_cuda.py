@@ -184,6 +184,14 @@ FLASH_GPU_CASES = [
     (1, 192, 4, 1, 256, 0, torch.bfloat16),
     (2, 448, 32, 32, 96, 0, torch.bfloat16),      # phi3-mini's heads
     (1, 320, 4, 2, 64, 64, torch.bfloat16),
+    # the TMA feed's zero fill: a padded sequence at hd 96 (columns 96-127
+    # of each box arrive as zeros), a last 128-row tile whose second half
+    # lies past the sequence (136 -> 192), and windows whose lower edge
+    # falls inside a key tile
+    (1, 200, 4, 2, 96, 0, torch.bfloat16),
+    (2, 136, 4, 1, 128, 0, torch.bfloat16),
+    (2, 320, 4, 2, 96, 100, torch.bfloat16),
+    (1, 448, 2, 1, 256, 200, torch.bfloat16),
 ]
 
 
@@ -217,6 +225,23 @@ def test_flash_attention_kernel_non_causal_aligned(cuda, Sq, Skv, hd, dtype):
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
 
 
+def test_bf16_forward_takes_views_off_a_16_byte_boundary(cuda):
+    """The bf16 forward reads q, k and v through TMA tensor maps, whose base
+    must be 16-byte aligned: views that start 4 bytes past a boundary (as
+    the 4-byte operand check allows) are copied first."""
+    B, S, H, KV, hd = 1, 192, 4, 2, 96
+    n = B * S * H * hd
+    q = randn((n + 2,), torch.bfloat16, 31, cuda)[2:].view(B, S, H, hd)
+    kv = randn((2 * B * S * KV * hd + 2,), torch.bfloat16, 32, cuda)[2:]
+    k, v = kv.view(2, B, S, KV, hd).unbind(0)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and q.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v, True, 0)
+    want, want_lse = attention_ref(q, k, v, causal=True)
+    atol, rtol = ATT_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
 def test_flash_attention_forward_is_deterministic(cuda):
     q = randn((2, 320, 4, 256), torch.bfloat16, 5, cuda)
     k, v = (randn((2, 320, 1, 256), torch.bfloat16, s, cuda) for s in (6, 7))
@@ -228,8 +253,8 @@ def test_flash_attention_forward_is_deterministic(cuda):
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
                                            (torch.float32, "cudacore")])
 def test_flash_kernels_route_by_dtype(cuda, dtype, variant):
-    """bf16 runs the forward and the dkv pass on the tensor cores, float32
-    on the CUDA cores; every launch also counts under its pass."""
+    """bf16 runs the forward, the dkv and the dq pass on the tensor cores,
+    float32 on the CUDA cores; every launch also counts under its pass."""
     q, do = (randn((1, 128, 4, 128), dtype, s, cuda) for s in (1, 2))
     k, v = (randn((1, 128, 1, 128), dtype, s, cuda) for s in (3, 4))
     other = "cudacore" if variant == "wgmma" else "wgmma"
@@ -237,7 +262,7 @@ def test_flash_kernels_route_by_dtype(cuda, dtype, variant):
     o, lse = flash_attention_fwd(q, k, v, True, 0)
     flash_attention_bwd(q, k, v, o, lse, do, True, 0)
     torch.cuda.synchronize()
-    for p in ("fwd", "dkv"):
+    for p in ("fwd", "dkv", "dq"):
         name = f"flash_attention_{p}"
         assert _lib.LAUNCHES[name] == before[name] + 1
         assert _lib.LAUNCHES[f"{name}_{variant}"] == before[f"{name}_{variant}"] + 1
@@ -373,7 +398,8 @@ def test_flash_attention_backward_kernels_match_plain(cuda, B, S, H, KV, hd,
     (64, 0, torch.bfloat16), (96, 0, torch.bfloat16), (128, 0, torch.bfloat16),
     (256, 0, torch.bfloat16), (64, 32, torch.bfloat16),
     (96, 100, torch.bfloat16), (128, 64, torch.bfloat16),
-    (256, 100, torch.bfloat16)])
+    (256, 100, torch.bfloat16), (96, 32, torch.bfloat16),
+    (256, 64, torch.bfloat16)])
 def test_flash_attention_backward_passes_match_their_plain_versions(cuda, hd,
                                                                     window,
                                                                     dtype):
@@ -405,6 +431,24 @@ def test_flash_attention_backward_is_deterministic(cuda):
     first = flash_attention_bwd(q, k, v, o, lse, do, True, 64)
     again = flash_attention_bwd(q, k, v, o, lse, do, True, 64)
     assert all(same_bits(a, b) for a, b in zip(first, again))
+
+
+def test_bf16_forward_and_dq_repeat_bit_for_bit(cuda):
+    """The TMA-fed forward and the tensor-core dq pass, 20 runs each: a
+    stage read before its loads landed, or refilled while a warpgroup still
+    read it, would show as a rare wrong tile."""
+    B, S, H, KV, hd = 2, 448, 4, 1, 256
+    q, do = (randn((B, S, H, hd), torch.bfloat16, s, cuda) for s in (21, 22))
+    k, v = (randn((B, S, KV, hd), torch.bfloat16, s, cuda) for s in (23, 24))
+    for window in (0, 200):
+        o, lse = flash_attention_fwd(q, k, v, True, window)
+        dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_attention_dq(q, k, v, do, lse, dsum, True, window)
+        for _ in range(20):
+            o2, lse2 = flash_attention_fwd(q, k, v, True, window)
+            dq2 = flash_attention_dq(q, k, v, do, lse, dsum, True, window)
+            assert same_bits(o, o2) and same_bits(lse, lse2), window
+            assert same_bits(dq, dq2), window
 
 
 def test_flash_attention_grads_run_through_the_kernels(cuda):

@@ -1,22 +1,25 @@
 """The numerical scheme of the bfloat16 tensor-core flash-attention kernels
 (``csrc/flash_attention.cu``'s forward, ``csrc/flash_attention_bwd.cu``'s
-dkv pass), emulated in plain float32 on the CPU and held to the port's
-unchanged tolerances against its plain versions and the JAX package.
+dkv and dq passes), emulated in plain float32 on the CPU and held to the
+port's unchanged tolerances against its plain versions and the JAX package.
 
 The emulation repeats the kernels' arithmetic, not their code: QK^T (and
 dO V^T) of bf16 operands summed in float32 and scaled afterwards; the
-forward's online softmax over 64-key tiles; P and dS carried as bf16
-hi + lo pairs (``hi = bf16(x)``, ``lo = bf16(x - hi)``) into the float32
-products P V, P^T dO and dS^T Q; dK scaled once at the end. bf16 x bf16
-products are exact in float32, so only the summation order differs from
-the card.
+forward's online softmax over 64-key tiles in base 2 (``exp2`` of
+``s * (scale * log2 e) - m``, one fused multiply-add; the log-sum-exp
+returned as a natural log); P and dS carried as bf16 hi + lo pairs
+(``hi = bf16(x)``, ``lo = bf16(x - hi)``) into the float32 products P V,
+P^T dO, dS^T Q and dS K; dK and dQ scaled once at the end, dQ then rounded
+to bf16. bf16 x bf16 products are exact in float32, so only the summation
+order differs from the card.
 
 Tolerances, as ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the
 kernels: a bf16 forward output within one bf16 ulp (2**-7 relative) plus
 2e-5 of each element, its log-sum-exp within 2e-5; dK and dV (float32)
-within 2e-4 * max(1, max|plain|). One more check records why the kernels
-split: the split's error is at most 1/16 of the error of P and dS rounded
-once to bf16."""
+within 2e-4 * max(1, max|plain|); dQ (bf16) within that plus two bf16 ulps
+of each element. More checks record why the kernels split: the split's
+error is at most 1/16 of the error of P and dS rounded once to bf16, and
+dS rounded once misses dQ's tolerance."""
 
 import math
 
@@ -30,9 +33,11 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_dkv_ref,  # noqa: E402
+                                                 attention_dq_ref,
                                                  attention_ref)
 
 NEG_INF = -2.0 ** 30
+LOG2E = 1.4426950408889634
 ATT_ATOL, BF16_ULP = 2e-5, 2 ** -7
 GRAD_TOL = 2e-4
 TILE = 64                                     # the kernels' key / q tile
@@ -74,23 +79,28 @@ def split(x, parts):
 
 
 def emulate_fwd(q, k, v, window, parts=2):
-    """The tensor-core forward's arithmetic: (o float32, lse)."""
+    """The tensor-core forward's arithmetic: (o float32, lse). Scores stay
+    unscaled; the running max m is kept in base-2 units (the tile's max
+    unscaled score times c = scale * log2 e, both float32), and
+    P = exp2(fma(s, c, -m)), the fma emulated in float64 and rounded once."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / math.sqrt(hd)
+    c = torch.tensor(1.0 / math.sqrt(hd), dtype=f32) * torch.tensor(LOG2E,
+                                                                    dtype=f32)
     qf = q.to(f32).reshape(B, Sq, KV, G, hd)
     kf, vf = k.to(f32), v.to(f32)
     m = torch.full((B, KV, G, Sq), NEG_INF)
     l = torch.zeros((B, KV, G, Sq))
     acc = torch.zeros((B, KV, G, Sq, hd))
     for k0 in range(0, Skv, TILE):
-        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf[:, k0:k0 + TILE]) * scale
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf[:, k0:k0 + TILE])
         s = torch.where(mask(Sq, Skv, window, k0, TILE), s,
                         torch.tensor(NEG_INF))
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2((s.double() * c.double()
+                        - m_new[..., None].double()).to(f32))
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None]
         for term in split(p, parts):
@@ -99,7 +109,7 @@ def emulate_fwd(q, k, v, window, parts=2):
         m = m_new
     lsum = torch.where(l == 0, torch.ones(()), l)
     o = (acc / lsum[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-    return o, (m + torch.log(lsum)).reshape(B, H, Sq)
+    return o, (m * math.log(2.0) + torch.log(lsum)).reshape(B, H, Sq)
 
 
 def emulate_dkv(q, k, v, do, lse, dsum, window, parts=2):
@@ -120,6 +130,39 @@ def emulate_dkv(q, k, v, do, lse, dsum, window, parts=2):
     dv = sum(torch.einsum("bkgsq,bqkgh->bskgh", t, dof) for t in split(p, parts))
     dk = sum(torch.einsum("bkgsq,bqkgh->bskgh", t, qf) for t in split(ds, parts))
     return (dk * scale).reshape(B, Skv, H, hd), dv.reshape(B, Skv, H, hd)
+
+
+def emulate_dq(q, k, v, do, lse, dsum, window, parts=2, rounded=True):
+    """The tensor-core dq pass's arithmetic: dq (B, Sq, H, hd) in bf16 (or,
+    with ``rounded`` False, in float32 before the last rounding)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.to(f32).reshape(B, Sq, KV, G, hd)
+    dof = do.to(f32).reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(f32)) * scale
+    p = torch.where(mask(Sq, Skv, window),
+                    torch.exp(s - lse.reshape(B, KV, G, Sq, 1)), torch.zeros(()))
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, v.to(f32))
+    ds = p * (dp - dsum.reshape(B, KV, G, Sq, 1))
+    dq = sum(torch.einsum("bkgqs,bskh->bqkgh", t, k.to(f32))
+             for t in split(ds, parts))
+    dq = (dq * scale).reshape(B, Sq, H, hd)
+    return dq.to(bf16) if rounded else dq
+
+
+def bf16_grad_limit(want):
+    """The bf16 gradient rule, per element: 2e-4 * max(1, max|want|) plus
+    two bf16 ulps of the element."""
+    w = want.to(torch.float64)
+    return GRAD_TOL * max(1.0, float(w.abs().max())) + 2 * BF16_ULP * w.abs()
+
+
+def assert_bf16_grad_close(got, want):
+    err = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    lim = bf16_grad_limit(want)
+    assert bool((err <= lim).all()), float((err / lim).max())
 
 
 def assert_att_close(got, want):
@@ -177,6 +220,24 @@ def test_emulated_dkv_holds_the_gradient_tolerance(B, S, H, KV, hd, window):
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,window", CASES, ids=IDS)
+def test_emulated_dq_holds_the_bf16_gradient_tolerance(B, S, H, KV, hd,
+                                                       window):
+    q, k, v, do = inputs(B, S, H, KV, hd, seed=7 * hd + window)
+    o, lse = fwd_stats(q, k, v, window)
+    dsum = (do.to(f32) * o).sum(-1).transpose(1, 2)
+    dq = emulate_dq(q, k, v, do, lse, dsum, window)
+    assert dq.dtype == bf16 and dq.shape == q.shape
+    assert_bf16_grad_close(dq, attention_dq_ref(q, k, v, do, lse, dsum,
+                                                window=window))
+    # the JAX package: jax.vjp of its attention_ref on the same values
+    jq, jk, jv, jdo = (jnp.asarray(t.to(f32).numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, causal=True,
+                                                       window=window),
+                     jq, jk, jv)
+    assert_bf16_grad_close(dq, torch.from_numpy(np.array(vjp(jdo)[0])))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", CASES, ids=IDS)
 def test_split_error_is_a_sixteenth_of_one_bf16_rounding(B, S, H, KV, hd,
                                                          window):
     """Against the plain float32 versions on the same values: P (and dS)
@@ -194,6 +255,31 @@ def test_split_error_is_a_sixteenth_of_one_bf16_rounding(B, S, H, KV, hd,
         errs = [float((emulate_dkv(q, k, v, do, lse, dsum, window, parts)[i]
                        - plain[i]).abs().max()) for parts in (2, 1)]
         assert errs[0] * 16 <= errs[1], (("dk", "dv")[i], errs)
+    # dq before its final bf16 rounding, against the plain float32 dq
+    want = attention_dq_ref(q.to(f32), k.to(f32), v.to(f32), do.to(f32),
+                            lse, dsum, window=window)
+    errs = [float((emulate_dq(q, k, v, do, lse, dsum, window, parts,
+                              rounded=False) - want).abs().max())
+            for parts in (2, 1)]
+    assert errs[0] * 16 <= errs[1], ("dq", errs)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", CASES, ids=IDS)
+def test_single_rounding_of_ds_misses_the_dq_tolerance(B, S, H, KV, hd,
+                                                       window):
+    """Why the dq kernel keeps the hi + lo split: one rounding of dS would
+    save a quarter of its tensor work, but it has to hold dq's bf16
+    tolerance with a 4x margin, and it misses the tolerance itself (by 3.4
+    to 5.9x on these cases) while the split stays under half of it."""
+    q, k, v, do = inputs(B, S, H, KV, hd, seed=7 * hd + window)
+    o, lse = fwd_stats(q, k, v, window)
+    dsum = (do.to(f32) * o).sum(-1).transpose(1, 2)
+    want = attention_dq_ref(q, k, v, do, lse, dsum, window=window)
+    lim = bf16_grad_limit(want)
+    use = [float(((emulate_dq(q, k, v, do, lse, dsum, window, parts)
+                   .to(torch.float64) - want.to(torch.float64)).abs()
+                  / lim).max()) for parts in (2, 1)]
+    assert use[0] <= 0.5 and use[1] > 1.0, use
 
 
 def test_single_rounding_misses_the_tolerances():
