@@ -8,17 +8,18 @@ and the selective scan in float32 and bfloat16 within stated tolerances)
 and times both, then drives the Spot-on loop through the entry points a
 user calls, at phi3-mini's published width cut to a few layers and at
 gemma3-1b's cut to one period, trains gemma3-1b at its full published
-config, and serves gemma3-1b, recurrentgemma-2b and falcon-mamba-7b at
-their full published configs, all with seeded weights:
+config, and serves gemma3-1b, recurrentgemma-2b, phi3-mini and
+falcon-mamba-7b at their full published configs, all with seeded weights:
 
   kernels         fingerprint / absmax / quantize / dequantize vs plain;
                   flash-attention forward, flash decode, the selective scan
                   and the RG-LRU scan vs plain at the serving shapes; the
                   flash-attention backward (dkv, dq) at the training shapes.
                   The forward, the dkv and the dq pass have two variants,
-                  chosen by dtype: bfloat16 on the tensor cores (wgmma),
-                  float32 on the CUDA cores; each is held, timed (with its
-                  TFLOP/s) and listed as a row of its own
+                  chosen by dtype: bfloat16 on the tensor cores (wgmma);
+                  float32 forward on the CUDA cores, float32 dkv and dq on
+                  the tensor cores in 3xTF32 (mma.sync); each is held,
+                  timed (with its TFLOP/s) and listed as a row of its own
   delta           delta saves of the full-width state at 1% and 5% block
                   churn: exact d2h accounting, bit-identical restore
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
@@ -35,16 +36,18 @@ their full published configs, all with seeded weights:
                   to one period (6 layers), sequences of 1024
   serve_gemma3,   batch 4, a 1984-token prompt, 64 greedy tokens through
   serve_recurrentgemma,  serve.make_prefill / make_decode_step (and
-  serve_falcon_mamba  serve.generate): prefill and decode tokens/s; a
+  serve_phi3,     serve.generate): prefill and decode tokens/s; a
+  serve_falcon_mamba
                   float32 copy's decode logits against its teacher-forced
                   logits; a mid-generation save and restore that must
                   continue to bitwise the same tokens
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
-flash forward, dkv and dq launches must have gone through the tensor-core
+flash forward, dkv and dq launches must have gone through the wgmma
 variants, and the float32 runs (the one-period gradient check, the float32
-decode against teacher forcing) through the CUDA-core ones. Prints the
+decode against teacher forcing) through the float32 ones: the CUDA-core
+forward and the 3xTF32 dkv and dq. Prints the
 card's name and power limit, ``ptxas``'s registers, spills and warnings,
 one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if any
@@ -79,6 +82,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 OPS32_PER_S = 67e12            # H100 SXM 32-bit rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
                                # (NVIDIA H100 data sheet, no sparsity)
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 CHUNK = 1 << 20
 LAYERS = 2                     # phi3-mini at full width, cut in depth
@@ -426,20 +430,23 @@ def serving_kernels(dev) -> dict:
     torch.cuda.empty_cache()
 
     # decode: gemma3's full cache at valid_len 2000 (not a multiple of the
-    # kernel's 32-key chunk) and its filled 512-slot ring, and
+    # kernel's 32-key chunk) and its filled 512-slot ring,
     # recurrentgemma's 2048-slot ring at its first decode step (10 heads,
-    # 1985 filled). Cache copies holding twice the L2 between them rotate
+    # 1985 filled), and phi3-mini's full cache (32 heads of 96, MHA, all
+    # 2048 rows). Cache copies holding twice the L2 between them rotate
     # through the timed calls, so each call reads its cache from device
     # memory as a decode step does.
     dec = {}
-    for name, Hd, Sc, vl in (("full", H, CACHE_LEN, PROMPT + 16),
-                             ("ring", H, 512, 512),
-                             ("ring_partial", 10, CACHE_LEN, PROMPT + 1)):
-        qd = torch.randn((B, 1, Hd, hd), generator=g, device=dev).to(bf)
-        n_copies = max(8, -(-2 * L2_BYTES // (B * Sc * KV * hd * 2 * 2)))
-        ks = [torch.randn((B, Sc, KV, hd), generator=g, device=dev).to(bf)
+    for name, Hd, KVd, hdd, Sc, vl in (
+            ("full", H, KV, hd, CACHE_LEN, PROMPT + 16),
+            ("ring", H, KV, hd, 512, 512),
+            ("ring_partial", 10, KV, hd, CACHE_LEN, PROMPT + 1),
+            ("phi3_hd96", 32, 32, 96, CACHE_LEN, CACHE_LEN)):
+        qd = torch.randn((B, 1, Hd, hdd), generator=g, device=dev).to(bf)
+        n_copies = max(8, -(-2 * L2_BYTES // (B * Sc * KVd * hdd * 2 * 2)))
+        ks = [torch.randn((B, Sc, KVd, hdd), generator=g, device=dev).to(bf)
               for _ in range(n_copies)]
-        vs = [torch.randn((B, Sc, KV, hd), generator=g, device=dev).to(bf)
+        vs = [torch.randn((B, Sc, KVd, hdd), generator=g, device=dev).to(bf)
               for _ in range(n_copies)]
         o = flash_decode(qd, ks[0], vs[0], vl)
         want = decode_attention_ref(qd[:, 0], ks[0], vs[0], vl)[:, None]
@@ -457,8 +464,8 @@ def serving_kernels(dev) -> dict:
             _sdpa(qt, kc.transpose(1, 2).contiguous(),
                   vc.transpose(1, 2).contiguous(), attn_mask=mask)
             for kc, vc in zip(ks, vs)])
-        ops = B * Hd * vl * hd * 4
-        nbytes = B * vl * KV * hd * 2 * 2 + qd.numel() * 2 * 2
+        ops = B * Hd * vl * hdd * 4
+        nbytes = B * vl * KVd * hdd * 2 * 2 + qd.numel() * 2 * 2
         dec[name] = dict(
             ms=time_ms(lambda: next(kernels)()),
             plain_ms=time_ms(lambda: decode_attention_ref(qd[:, 0], ks[0],
@@ -466,7 +473,7 @@ def serving_kernels(dev) -> dict:
             library_ms=time_ms(lambda: next(libs)()), max_abs_err=err,
             f32_max_abs_err=err32,
             bound=bound(nbytes, ops, BF16_FLOPS_PER_S), tol=ATT_TOL,
-            bf16_rtol=BF16_RTOL, shape=[B, Sc, Hd, KV, hd], valid_len=vl,
+            bf16_rtol=BF16_RTOL, shape=[B, Sc, Hd, KVd, hdd], valid_len=vl,
             cache_copies=n_copies, dtype="bfloat16")
         del ks, vs, kernels, libs
     out["decode_attention"] = dict(dec["full"], cases=dec)
@@ -580,7 +587,7 @@ def training_kernels(dev) -> dict:
                              attention_dq_ref(*args, causal=True, window=window))
         del dq
         # float32 on the same values widened: no bf16 rounding to hide in;
-        # the CUDA-core dkv kernel, timed
+        # the 3xTF32 dkv and dq kernels, timed
         a32 = tuple(t.to(f32) for t in (q, k, v, do))
         o32, lse32 = flash_attention_fwd(*a32[:3], True, window)
         ds32 = (a32[3] * o32).sum(-1).transpose(1, 2).contiguous()
@@ -601,14 +608,18 @@ def training_kernels(dev) -> dict:
         in32 = (q.numel() * 2 + k.numel() * 2) * 4 + lse.numel() * 4 * 2
         ms32 = time_ms(lambda: flash_attention_dkv(*args32, True, window))
         lib32 = _sdpa_bwd_ms(*a32, window)
+        # the bound of the route taken: every float32 product is three TF32
+        # products (3xTF32) over the TF32 tensor-core rate
         common32 = dict(library_ms=lib32, tol=GRAD_TOL, shape=[B, S, H, KV, hd],
-                        window=window, dtype="float32", kernel="CUDA cores",
+                        window=window, dtype="float32",
+                        kernel="3xTF32 (mma.sync, tensor cores)",
                         library="SDPA backward (both passes)")
         dkv32_cases[name] = dict(
             ms=ms32, plain_ms=time_ms(lambda: attention_dkv_ref(
                 *args32, causal=True, window=window), reps=3),
             max_abs_err=f32_err_dkv,
-            bound=bound(in32 + out_bytes, pairs * hd * 8),
+            bound=bound(in32 + out_bytes, 3 * pairs * hd * 8,
+                        TF32_FLOPS_PER_S),
             tflops=pairs * hd * 8 / ms32 / 1e9, **common32)
         ms32 = time_ms(lambda: flash_attention_dq(*args32, True, window))
         dq32_cases[name] = dict(
@@ -616,7 +627,8 @@ def training_kernels(dev) -> dict:
                 *args32, causal=True, window=window), reps=3),
             max_abs_err=f32_err_dq,
             # S, dP, dQ: 6 FLOPs per pair and head dim; dq written in float32
-            bound=bound(in32 + q.numel() * 4, pairs * hd * 6),
+            bound=bound(in32 + q.numel() * 4, 3 * pairs * hd * 6,
+                        TF32_FLOPS_PER_S),
             tflops=pairs * hd * 6 / ms32 / 1e9, **common32)
         del a32, o32, lse32, ds32, args32
         common = dict(library_ms=_sdpa_bwd_ms(q, k, v, do, window),
@@ -706,11 +718,11 @@ def training_kernels(dev) -> dict:
                           for n, a, b in zip(("dq", "dk", "dv"), got, want))
     return {"flash_attention_dkv_wgmma": dict(
                 dkv_cases["global"], cases=dkv_cases, checks=extra),
-            "flash_attention_dkv_cudacore": dict(
+            "flash_attention_dkv_tf32x3": dict(
                 dkv32_cases["global"], cases=dkv32_cases, checks=extra),
             "flash_attention_dq_wgmma": dict(dq_cases["global"], cases=dq_cases,
                                              checks=extra),
-            "flash_attention_dq_cudacore": dict(
+            "flash_attention_dq_tf32x3": dict(
                 dq32_cases["global"], cases=dq32_cases, checks=extra)}
 
 
@@ -951,11 +963,13 @@ def _loop_summary(rep, wall_s) -> dict:
             "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s}
 
 
-def _need_variant(counted: dict, what: str, variant: str) -> None:
-    """Every flash forward, dkv and dq launch of a run went through
-    ``variant``: "wgmma" (bfloat16, the tensor cores) or "cudacore"
-    (float32)."""
-    for p in ("fwd", "dkv", "dq"):
+def _need_variant(counted: dict, what: str, dtype: str) -> None:
+    """Every flash forward, dkv and dq launch of a run went through the
+    variants ``dtype`` selects (``flash_attention.VARIANTS``): bfloat16 all
+    on wgmma; float32 the CUDA-core forward and the 3xTF32 dkv and dq."""
+    import torch
+    from repro_torch.kernels.flash_attention import VARIANTS
+    for p, variant in VARIANTS[getattr(torch, dtype)].items():
         k = f"flash_attention_{p}"
         need(counted[f"{k}_{variant}"] == counted[k],
              f"{what}: {counted[f'{k}_{variant}']} of {counted[k]} {k} "
@@ -988,7 +1002,7 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
     for k in ("flash_attention_fwd", "flash_attention_dkv",
               "flash_attention_dq"):
         need(launches[name][k] > 0, f"the train steps launched no {k} kernel")
-    _need_variant(launches[name], name, "wgmma")
+    _need_variant(launches[name], name, "bfloat16")
     res["config"] = {"name": cfg.name, "n_layers": cfg.n_layers,
                      "d_model": cfg.d_model, "head_dim": cfg.head_dim,
                      "batch": 2, "seq_len": seq_len}
@@ -1089,7 +1103,7 @@ def phase_train_gemma3(dev, card, launches) -> dict:
         need(counted[k] == n_attn * TRAIN_STEPS,
              f"train_gemma3: {counted[k]} {k} launches, expected "
              f"{n_attn} per step")
-    _need_variant(counted, "train_gemma3", "wgmma")
+    _need_variant(counted, "train_gemma3", "bfloat16")
     need(all(math.isfinite(x) for x in losses), "train_gemma3: non-finite loss")
     med = statistics.median(step_s)
     res = {"card": card,
@@ -1112,7 +1126,7 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     params = init_params(cfg32, seed=1, device=dev)
     tok = torch.randint(0, cfg.vocab_size, (1, LOOP_S + 1), generator=g,
                         device=dev, dtype=torch.int32)
-    # the float32 path: its own counts, through the CUDA-core kernels
+    # the float32 path: its own counts, through the float32 kernels
     _lib.reset_launches()
     t0 = time.perf_counter()
     loss_d, _, grads_d = loss_and_grads(cfg32, params, tok[:, :-1], tok[:, 1:])
@@ -1120,11 +1134,11 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     card_s = time.perf_counter() - t0
     launches["train_gemma3_f32"] = c32 = dict(_lib.LAUNCHES)
     n_attn32 = sum(k in ("global", "local") for k in cfg32.layer_kinds())
-    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_cudacore",
-              "flash_attention_dq_cudacore"):
+    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_tf32x3",
+              "flash_attention_dq_tf32x3"):
         need(c32[k] == n_attn32, f"train_gemma3 float32: {c32[k]} {k} "
                                  f"launches, expected {n_attn32}")
-    _need_variant(c32, "train_gemma3 float32", "cudacore")
+    _need_variant(c32, "train_gemma3 float32", "float32")
     params_h = ser.unflatten_like(params, {
         n: t.cpu() for n, t in ser.flatten_state(params).items()})
     del params
@@ -1273,7 +1287,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     for name, n in want.items():
         need(counted[name] == n,
              f"{arch}: {counted[name]} {name} launches, expected {n}")
-    _need_variant(counted, arch, "wgmma")
+    _need_variant(counted, arch, "bfloat16")
     need(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
          f"{arch}: tokens out of range")
     gen = generate(params, cfg, prompt, NEW, cache_len=CACHE_LEN, device=dev)
@@ -1336,7 +1350,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     need(c32["flash_attention_fwd_cudacore"] == n_attn,
          f"{arch} float32: {c32['flash_attention_fwd_cudacore']} CUDA-core "
          f"forward launches, expected {n_attn}")
-    _need_variant(c32, f"{arch} float32", "cudacore")
+    _need_variant(c32, f"{arch} float32", "float32")
     with torch.no_grad():
         seq = torch.cat([prompt, tok32[:, :-1]], dim=1)     # (B, PROMPT+NEW-1)
         hidden, _ = forward(params32, cfg32, seq, return_hidden=True)
@@ -1395,7 +1409,8 @@ KERNELS = {
     "dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
                    "src/repro/kernels/quantize/quantize.py:62"),
     # rows 5, 6 and 7 have two variants, chosen by dtype: bfloat16 on the
-    # tensor cores (wgmma), float32 on the CUDA cores
+    # tensor cores (wgmma); float32 forward on the CUDA cores, float32 dkv
+    # and dq on the tensor cores in 3xTF32 (mma.sync)
     "flash_attention_fwd_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:65"),
@@ -1405,13 +1420,13 @@ KERNELS = {
     "flash_attention_dkv_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:156"),
-    "flash_attention_dkv_cudacore": (
+    "flash_attention_dkv_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:156"),
     "flash_attention_dq_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:201"),
-    "flash_attention_dq_cudacore": (
+    "flash_attention_dq_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:201"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1446,14 +1461,17 @@ def main() -> int:
     ptxas = ptxas_summary(_lib.ptxas_report())
     lib = _lib.library()
     # the tensor-core kernels' dynamic shared memory, beside ptxas's counts
-    wgmma_smem = {f"{p}_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_wgmma_smem")(hd)
-                  for p in ("fwd", "dkv", "dq") for hd in _lib.HEAD_DIMS}
-    print(json.dumps({"ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem,
+    tc_smem = {f"{p}_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_wgmma_smem")(hd)
+               for p in ("fwd", "dkv", "dq") for hd in _lib.HEAD_DIMS}
+    tc_smem.update({
+        f"{p}_tf32x3_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_tf32x3_smem")(hd)
+        for p in ("dkv", "dq") for hd in _lib.HEAD_DIMS})
+    print(json.dumps({"ptxas": ptxas, "tensor_core_dynamic_smem": tc_smem,
                       "ptxas_warnings": _lib.ptxas_warnings()}), flush=True)
     cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)
     launches: dict[str, dict] = {}
     results: dict = {"card": card, "build_s": _lib.build_seconds(),
-                     "ptxas": ptxas, "wgmma_dynamic_smem": wgmma_smem,
+                     "ptxas": ptxas, "tensor_core_dynamic_smem": tc_smem,
                      "config": {"name": cfg.name, "n_layers": cfg.n_layers,
                                 "d_model": cfg.d_model}}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1477,6 +1495,8 @@ def main() -> int:
                                                 card, launches),
             "serve_recurrentgemma": lambda: phase_serve(
                 "recurrentgemma_2b", dev, workdir, card, launches),
+            "serve_phi3": lambda: phase_serve("phi3_mini_3p8b", dev, workdir,
+                                              card, launches),
             "serve_falcon_mamba": lambda: phase_serve(
                 "falcon_mamba_7b", dev, workdir, card, launches),
         }

@@ -170,16 +170,22 @@ def flatten_state(tree) -> dict[str, Any]:
 
 def unflatten_like(template, named: dict[str, Any]):
     """Rebuild ``template``'s nesting with leaves taken from ``named``."""
-    def build(tree, prefix):
-        if isinstance(tree, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            vals = [build(v, prefix + (str(i),)) for i, v in enumerate(tree)]
-            return type(tree)(vals) if isinstance(tree, tuple) else vals
-        if tree is None:
-            return None
-        return named["/".join(prefix)]
-    return build(template, ())
+    return _build(template, (), named)
+
+
+def _build(tree, prefix, named):
+    # a module-level function, not a closure: a nested recursive function
+    # refers to itself through its closure cell, a cycle that would keep
+    # ``named`` (every leaf, device tensors included) alive until the next
+    # garbage collection
+    if isinstance(tree, dict):
+        return {k: _build(v, prefix + (str(k),), named) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [_build(v, prefix + (str(i),), named) for i, v in enumerate(tree)]
+        return type(tree)(vals) if isinstance(tree, tuple) else vals
+    if tree is None:
+        return None
+    return named["/".join(prefix)]
 
 
 def structure_repr(tree) -> str:

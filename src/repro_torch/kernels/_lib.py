@@ -45,14 +45,15 @@ LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
                             "rglru_scan": 0,
                             # the two variants of the forward, the dkv and
                             # the dq pass (each launch counts under its pass
-                            # too): bfloat16 on the tensor cores, float32 on
-                            # the CUDA cores
+                            # too): bfloat16 on the tensor cores (wgmma);
+                            # float32 forward on the CUDA cores, float32 dkv
+                            # and dq on the tensor cores in 3xTF32
                             "flash_attention_fwd_wgmma": 0,
                             "flash_attention_fwd_cudacore": 0,
                             "flash_attention_dkv_wgmma": 0,
-                            "flash_attention_dkv_cudacore": 0,
+                            "flash_attention_dkv_tf32x3": 0,
                             "flash_attention_dq_wgmma": 0,
-                            "flash_attention_dq_cudacore": 0}
+                            "flash_attention_dq_tf32x3": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -84,10 +85,13 @@ _SIGNATURES = {
     #  window, scale, stream)
     "spot_flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P),
-    # (hd) -> dynamic shared memory bytes of the bf16 tensor-core kernels
+    # (hd) -> dynamic shared memory bytes of the tensor-core kernels: bf16
+    # (wgmma) and the float32 backward (3xTF32)
     "spot_flash_attention_fwd_wgmma_smem": (_I32,),
     "spot_flash_attention_dkv_wgmma_smem": (_I32,),
     "spot_flash_attention_dq_wgmma_smem": (_I32,),
+    "spot_flash_attention_dkv_tf32x3_smem": (_I32,),
+    "spot_flash_attention_dq_tf32x3_smem": (_I32,),
     # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
     "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _F32, _P),
@@ -102,10 +106,11 @@ _SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 FLOAT_DTYPES = tuple(DTYPE_CODES)            # the checkpoint kernels
 # the model kernels' template instances: the dtypes and head dimensions the
-# models serve and train in, and no others (phi3-mini trains at head dim 96)
+# models serve and train in, and no others (phi3-mini trains and serves at
+# head dim 96)
 SERVING_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 96, 128, 256)          # flash attention forward and backward
-DECODE_HEAD_DIMS = (64, 128, 256)       # flash decode
+DECODE_HEAD_DIMS = (64, 96, 128, 256)   # flash decode
 SSM_STATES = 16                         # the selective scan's d_state
 
 

@@ -26,8 +26,9 @@
 // newest token, so the ring's validity mask is slot < min(pos + 1, W), and
 // softmax does not depend on slot order.
 //
-// Shapes: q (B, H, hd), k/v (B, S, KV, hd), o (B, H, hd); hd is 64, 128 or
-// 256; 1 <= valid_len <= S; H % KV == 0. Built for float32 and bfloat16, the
+// Shapes: q (B, H, hd), k/v (B, S, KV, hd), o (B, H, hd); hd is 64, 96, 128
+// or 256 (at 96, phi3-mini's, each lane holds three columns);
+// 1 <= valid_len <= S; H % KV == 0. Built for float32 and bfloat16, the
 // dtypes the models serve in.
 #include "common.cuh"
 
@@ -148,6 +149,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 cudaStream_t s) {
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, valid_len, scale, s);
+    case 96: return launch<T, 96>(q, k, v, o, B, S, H, KV, valid_len, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, valid_len, scale, s);
     case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, valid_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

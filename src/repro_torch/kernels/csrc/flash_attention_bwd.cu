@@ -12,7 +12,7 @@
 // dQ += dS K), against 2 * hd loaded values per row, far above the card's
 // ~295 operations per byte; their floor is the FLOPs over the tensor-core
 // rate (a fused one-pass backward needs five products for both, not
-// seven), reachable only through wgmma.
+// seven): bf16 through wgmma, float32 as three TF32 products per product.
 //
 // Both passes recompute P = exp(S - lse) and dS = P * (dP - D). Masked
 // pairs get P = 0, and tiles with no visible pair (past the causal
@@ -71,21 +71,67 @@
 // pair and head dimension against 8 for one warpgroup per row block.
 // Shared memory at hd 256: Q, dO 64 KB + K, V in two stages 128 KB.
 //
-// dkv and dq in float32: on the CUDA cores in float32
-// (IEEE fmaf, never TF32), their bound shared-memory loads well above the
-// floor. q is widened to float32, then scaled, as the forward does.
-//  * dkv: one CTA of 8 warps per (key tile, query head, batch) walks the
-//    q tiles that can see it. dK and dV of the tile stay in registers (warp
-//    w owns keys w, w + 8, ...; lane j owns columns j, j + 32, ...).
-//  * dq: one CTA per (q tile, query head, batch) walks the visible key
-//    tiles; warp w owns q rows (its own rows of dS, so only a __syncwarp
-//    lies between computing dS and reading it back) and writes dq * scale.
-// Their tiles are float32 in shared memory; K and V rows are padded to
-// hd + 1 floats, so lane j reading key j's column d hits bank (j + d) % 32.
-// At head dim 256 a 64-row set of K, V, Q and dO tiles would not fit in the
-// 227 KB a block may use, so the tiles there are 32 rows (137 KB for dkv);
-// at hd <= 128 they are 64 rows (161 KB at hd 128). Both opt into that
-// much dynamic shared memory and run one CTA per SM.
+// dkv and dq in float32: flash_dkv_tf32x3_kernel and flash_dq_tf32x3_kernel,
+// on the tensor cores in 3xTF32 (mma.sync m16n8k8 tf32 with float32 sums).
+// Every operand value x of the five products (S, dP, and dV, dK or dQ) is
+// split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
+// a b ~ hi_a lo_b + lo_a hi_b + hi_a hi_b, the two small products issued
+// first, into one float32 accumulator: about float32's error (the CPU
+// emulation in tests/test_torch_flash_numerics.py errs 0.85-1.67x as much
+// as the plain float32 version against float64), where one TF32 rounding
+// misses the gradient tolerance by 1.5-4.7x. Why mma.sync and not wgmma: tf32 wgmma
+// reads shared-memory operands only K-major and 3xTF32 needs both halves
+// of every operand, so dkv would need hi and lo copies of K and V and
+// transposed ones of Q and dO, far past 227 KB at hd 256 in float32;
+// mma.sync takes its fragments from registers, so each float32 tile is
+// kept once in shared memory, split as a fragment is loaded, and a
+// transposed operand is another load pattern. q is scaled (q * scale,
+// float32) as its fragments are loaded, before the split, as the plain
+// version widens and then scales it.
+//
+// Fragments (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g); the
+// accumulator c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// The sum over k is taken in any order, so P^T and dS^T (and dS) go from
+// the accumulator layout to the A layout of the next product by relabelling
+// k: A's k = t is the column 2t, k = t + 4 the column 2t + 1, and the B
+// operand (dO, Q or K, read down its rows) follows the same labels. Each
+// warp writes its accumulator columns of P^T and dS^T (or dS) to shared
+// memory as float2 pairs, and after a barrier of the warps that share its
+// rows reads the whole row block back as float2 pairs, no shuffles.
+//
+//  * dkv: one CTA of 8 warps per (BK-key tile, query head, batch) walks the
+//    32-row q tiles that can see it. K and V stay in shared memory; Q, dO,
+//    lse and D stream through a two-stage cp.async ring (16 bytes a
+//    thread; the next tile's copies are issued right after the one block
+//    barrier of each tile, so they overlap the tile's products). For S^T
+//    and dP^T, warp w owns 16 key rows (w / NWD); warps w and w ^ 1
+//    compute their 2 QW q columns together, each over half the head
+//    dimension (a K or V fragment, split once, feeds twice the products),
+//    and add the halves through shared memory, each keeping its QW columns
+//    (w % NWD). For dV and dK, warp w owns 32 key rows (two groups, whose
+//    warps meet at a barrier) and DW columns of the head dimension, so
+//    each split dO or Q fragment feeds two 16-row products. BK 32 at
+//    hd 256 (NWD 4: QW 8, DW 32), else 64 (NWD 2: QW 16, DW = hd / 4).
+//  * dq: one CTA of 8 warps per (BQ-row q tile, query head, batch) walks
+//    the 32-key tiles the q tile can see; Q and dO stay, K and V stream
+//    through the ring. S and dP are computed as in dkv: warp w owns 16 q
+//    rows, pairs split the head dimension, each warp keeps KW keys; then
+//    dQ += dS K with warp w owning 32 q rows and DW columns; dQ is
+//    multiplied by the scale once. BQ 32 at hd 256 (NWD 4: KW 8, DW 32),
+//    else 64 (NWD 2: KW 16, DW = hd / 4).
+// The loops over the head dimension are unrolled in full (faster than by
+// four at hd 256; PERF.md section 6).
+// Both grids put the tiles in the slow dimension, with a causal mask the
+// heaviest first (dkv: the first key tiles; dq: the last q tiles), so
+// every head's heavy tiles start in the first wave.
+// Shared-memory rows are padded to hd + 4 floats and P/dS rows to the tile
+// width + 8, so every fragment load and store is free of bank conflicts:
+// scalar loads of (g, t) at rows hd + 4 apart hit bank 4g + t, of (2t, g)
+// bank 8t + g, and float2 pairs of (g, 2t) at rows width + 8 apart cover
+// the 32 banks once per half-warp. Shared memory: dkv 218,624 B at hd 256,
+// dq 212,992 B (one CTA per SM); the other head dims are smaller
+// (spot_flash_attention_{dkv,dq}_tf32x3_smem).
 //
 // Shapes: q, do (B, Sq, H, hd); k, v (B, Skv, KV, hd); lse, dsum (B, H, Sq)
 // float32; dk, dv out (B, Skv, H, hd) float32; dq out like q. Sq and Skv
@@ -98,263 +144,515 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+namespace tc = spot::tc;
+
+// ---------------------------------------------------------------------------
+// dkv and dq in float32 on the tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int F_WARPS = 8;
+constexpr int F_THREADS = F_WARPS * 32;
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+struct FragA { uint32_t hi[4], lo[4]; };
+struct FragB { uint32_t hi[2], lo[2]; };
+
+// x ~ hi + lo, both TF32. hi is cvt.rna's (which keeps a NaN or an
+// infinity as it is); x - hi is finite whenever x is, and lo rounds it the
+// way cvt.rna rounds a finite value, on the bits (add half a TF32 ulp to
+// the magnitude, clear the 13 low bits): two integer instructions where
+// cvt.rna takes four, with the same result
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, the two small products first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A fragment of rows 0..15 x columns 0..7 of a tile (row stride LD), each
+// value times mul
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* s, int lane, float mul) {
+  const float* p = s + (lane >> 2) * LD + (lane & 3);
+  FragA f;
+  split_tf32(p[0] * mul, f.hi[0], f.lo[0]);
+  split_tf32(p[8 * LD] * mul, f.hi[1], f.lo[1]);
+  split_tf32(p[4] * mul, f.hi[2], f.lo[2]);
+  split_tf32(p[8 * LD + 4] * mul, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A fragment of rows 0..15 x columns 0..7 with k relabelled (k = t is
+// column 2t, k = t + 4 column 2t + 1), read as float2 pairs
+template <int LD>
+__device__ __forceinline__ FragA frag_a_pairs(const float* s, int lane) {
+  const float* p = s + (lane >> 2) * LD + 2 * (lane & 3);
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 w = *reinterpret_cast<const float2*>(p + 8 * LD);
+  FragA f;
+  split_tf32(u.x, f.hi[0], f.lo[0]);
+  split_tf32(w.x, f.hi[1], f.lo[1]);
+  split_tf32(u.y, f.hi[2], f.lo[2]);
+  split_tf32(w.y, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment (k x n = 8 x 8) whose n runs down the tile's rows and k along
+// its columns: b = tile[n][k] (K, Q^T, V^T, dO^T in S and dP)
+template <int LD>
+__device__ __forceinline__ FragB frag_b_rows(const float* s, int lane, float mul) {
+  const float* p = s + (lane >> 2) * LD + (lane & 3);
+  FragB f;
+  split_tf32(p[0] * mul, f.hi[0], f.lo[0]);
+  split_tf32(p[4] * mul, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B fragment whose k runs down the tile's rows, relabelled as frag_a_pairs
+// labels it: b0 = tile[2t][g], b1 = tile[2t + 1][g] (dO, Q, K in the
+// gradient products)
+template <int LD>
+__device__ __forceinline__ FragB frag_b_cols(const float* s, int lane, float mul) {
+  const float* p = s + 2 * (lane & 3) * LD + (lane >> 2);
+  FragB f;
+  split_tf32(p[0] * mul, f.hi[0], f.lo[0]);
+  split_tf32(p[LD] * mul, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// an accumulator's values as float2 pairs at rows g, g + 8, columns 2t, 2t + 1
+template <int LD>
+__device__ __forceinline__ void store_pairs(float* s, int lane, const float (&c)[4]) {
+  float* p = s + (lane >> 2) * LD + 2 * (lane & 3);
+  *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(p + 8 * LD) = make_float2(c[2], c[3]);
+}
+
+// a barrier of the `count` threads of the warps that share a row block
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The two warps of a pair (w, w ^ 1) each hold the partial S and dP of the
+// pair's 2 NB column blocks over half the head dimension: each sends the
+// other the blocks the other keeps (warp half h keeps blocks h NB ..
+// h NB + NB - 1) through its outbox of 2 NB float4 a lane, and returns in
+// sk, dpk its own blocks plus the other's partial. One writer, one fixed
+// sum per value. The blocks are chosen by selects, not by a runtime index
+// into the arrays, which would put them in local memory.
+template <int NB>
+__device__ __forceinline__ void pair_sum(float4* xch, int warp, int lane, int half,
+                                         const float (&s)[2 * NB][4],
+                                         const float (&dp)[2 * NB][4], float (&sk)[NB][4],
+                                         float (&dpk)[NB][4], int bar_id) {
+  float4* out = xch + warp * 2 * NB * 32 + lane;
+  const float4* in = xch + (warp ^ 1) * 2 * NB * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    float gs[4], gd[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      gs[i] = half ? s[n][i] : s[NB + n][i];
+      gd[i] = half ? dp[n][i] : dp[NB + n][i];
+      sk[n][i] = half ? s[NB + n][i] : s[n][i];
+      dpk[n][i] = half ? dp[NB + n][i] : dp[n][i];
+    }
+    out[n * 32] = make_float4(gs[0], gs[1], gs[2], gs[3]);
+    out[(NB + n) * 32] = make_float4(gd[0], gd[1], gd[2], gd[3]);
+  }
+  bar_sync(bar_id, 64);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const float4 a = in[n * 32], b = in[(NB + n) * 32];
+    sk[n][0] += a.x; sk[n][1] += a.y; sk[n][2] += a.z; sk[n][3] += a.w;
+    dpk[n][0] += b.x; dpk[n][1] += b.y; dpk[n][2] += b.z; dpk[n][3] += b.w;
+  }
+}
+
+// ROWS x HD floats (global row stride `stride`) into shared rows of LD
+// floats, by cp.async, 16 bytes a thread
+template <int ROWS, int HD, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int tid) {
+  constexpr int CH = HD / 4;
+#pragma unroll 4
+  for (int i = tid; i < ROWS * CH; i += F_THREADS) {
+    const int r = i / CH, c = (i - r * CH) * 4;
+    tc::cp_async16(tc::smem_u32(dst + r * LD + c), src + r * stride + c, true);
+  }
+}
 
 template <int HD>
-constexpr int tile_rows() { return HD > 128 ? 32 : 64; }
+struct F32Dkv {
+  static constexpr int BK = HD > 128 ? 32 : 64;    // keys per CTA
+  static constexpr int BQ = 32;                    // q rows per tile
+  static constexpr int NWK = BK / 16;              // 16-key groups
+  static constexpr int NWD = F_WARPS / NWK;        // warps per 16-key group
+  static constexpr int QW = BQ / NWD;              // S^T columns per warp
+  static constexpr int DW = HD / (2 * NWD);        // dK, dV columns per warp
+  static constexpr int LD = HD + 4;                // tile row stride
+  static constexpr int LDP = BQ + 8;               // P^T, dS^T row stride
+  // K, V; Q and dO in two stages; P^T, dS^T; lse and D in two stages;
+  // the pair sums' outboxes (QW columns of S^T and of dP^T, 16 rows a warp)
+  static constexpr int SMEM =
+      4 * (2 * BK * LD + 2 * 2 * BQ * LD + 2 * BK * LDP + 2 * 2 * BQ + F_THREADS * QW);
+};
 
-// global (row stride `stride`) -> shared float32 tile of `rows` x HD with
-// leading dimension LD, each value times `mul`
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
-                                          long long stride, int rows,
-                                          float mul) {
-  for (int i = threadIdx.x; i < rows * HD; i += THREADS) {
-    const int r = i / HD, d = i - r * HD;
-    dst[r * LD + d] = spot::to_f32<T>(src[r * stride + d]) * mul;
-  }
-}
+template <int HD>
+struct F32Dq {
+  static constexpr int BQ = HD > 128 ? 32 : 64;    // q rows per CTA
+  static constexpr int BK = 32;                    // keys per tile
+  static constexpr int NWQ = BQ / 16;              // 16-row groups
+  static constexpr int NWD = F_WARPS / NWQ;        // warps per 16-row group
+  static constexpr int KW = BK / NWD;              // S, dP columns per warp
+  static constexpr int DW = HD / (2 * NWD);        // dQ columns per warp
+  static constexpr int LD = HD + 4;
+  static constexpr int LDS = BK + 8;               // dS row stride
+  // Q, dO; K and V in two stages; dS; the pair sums' outboxes
+  static constexpr int SMEM =
+      4 * (2 * BQ * LD + 2 * 2 * BK * LD + BQ * LDS + F_THREADS * KW);
+};
 
-// P and dS of one (q tile, key tile) pair. Warp w owns q rows
-// w * RW .. w * RW + RW - 1, lane j owns keys j, j + 32 (BT / 32 of them).
-// Ps may be null (the dq pass needs only dS).
-template <int HD, int BT>
-__device__ __forceinline__ void probs(const float* __restrict__ Qs,
-                                      const float* __restrict__ dOs,
-                                      const float* __restrict__ Ks,
-                                      const float* __restrict__ Vs,
-                                      const float* __restrict__ lse_s,
-                                      const float* __restrict__ dsum_s,
-                                      float* __restrict__ Ps,
-                                      float* __restrict__ dSs, int q_lo,
-                                      int k_lo, int causal, int window) {
-  constexpr int RW = BT / WARPS, KC = BT / 32, LD = HD + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float s[RW][KC], dp[RW][KC];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int c = 0; c < KC; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float kk[KC][4], vv[KC][4];
-#pragma unroll
-    for (int c = 0; c < KC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kk[c][e] = Ks[(lane + 32 * c) * LD + d + e];
-        vv[c][e] = Vs[(lane + 32 * c) * LD + d + e];
-      }
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int i = warp * RW + r;
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + i * HD + d);
-      const float4 ov = *reinterpret_cast<const float4*>(dOs + i * HD + d);
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        s[r][c] = fmaf(qv.x, kk[c][0], s[r][c]);
-        s[r][c] = fmaf(qv.y, kk[c][1], s[r][c]);
-        s[r][c] = fmaf(qv.z, kk[c][2], s[r][c]);
-        s[r][c] = fmaf(qv.w, kk[c][3], s[r][c]);
-        dp[r][c] = fmaf(ov.x, vv[c][0], dp[r][c]);
-        dp[r][c] = fmaf(ov.y, vv[c][1], dp[r][c]);
-        dp[r][c] = fmaf(ov.z, vv[c][2], dp[r][c]);
-        dp[r][c] = fmaf(ov.w, vv[c][3], dp[r][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int i = warp * RW + r, qpos = q_lo + i;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const int j = lane + 32 * c, kpos = k_lo + j;
-      bool ok = true;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window) ok = ok && kpos > qpos - window;
-      const float p = ok ? expf(s[r][c] - lse_s[i]) : 0.f;
-      if (Ps != nullptr) Ps[i * BT + j] = p;
-      dSs[i * BT + j] = p * (dp[r][c] - dsum_s[i]);
-    }
-  }
-}
-
-template <int HD, int BT>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (size_t)(2 * BT * (HD + 1) + 2 * BT * HD + 2 * BT * BT + 2 * BT);
-}
-
-template <int HD, int BT>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (size_t)(2 * BT * (HD + 1) + 2 * BT * HD + BT * BT + 2 * BT);
-}
-
-template <typename T, int HD, int BT>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                 float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                 int Skv, int H, int KV, int causal, int window, float scale) {
-  constexpr int LD = HD + 1, RK = BT / WARPS, DC = HD / 32;
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dsum,
+                        float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                        int Skv, int H, int KV, int causal, int window, float scale) {
+  using C = F32Dkv<HD>;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDP = C::LDP;
+  constexpr int NB = C::QW / 8, ND = C::DW / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                 // BT x LD
-  float* Vs = Ks + BT * LD;         // BT x LD
-  float* Qs = Vs + BT * LD;         // BT x HD, scaled
-  float* dOs = Qs + BT * HD;        // BT x HD
-  float* Ps = dOs + BT * HD;        // BT x BT
-  float* dSs = Ps + BT * BT;        // BT x BT
-  float* lse_s = dSs + BT * BT;     // BT
-  float* dsum_s = lse_s + BT;       // BT
+  float* Ks = smem;                  // BK x LD
+  float* Vs = Ks + BK * LD;          // BK x LD
+  float* Qs = Vs + BK * LD;          // two stages of BQ x LD
+  float* dOs = Qs + 2 * BQ * LD;     // two stages of BQ x LD
+  float* Ps = dOs + 2 * BQ * LD;     // BK x LDP
+  float* dSs = Ps + BK * LDP;        // BK x LDP
+  float* stat = dSs + BK * LDP;      // stage st: lse at 2 BQ st, D after it
+  float4* xch = reinterpret_cast<float4*>(stat + 2 * 2 * BQ);  // pair sums
 
-  const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // key tiles in the slow grid dimension: with a causal mask the first
+  // ones see the most q tiles, and every head's first ones launch first
+  const int kt = blockIdx.y, h = blockIdx.x % H, b = blockIdx.x / H;
   const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k_lo = ki * BT, k_hi = k_lo + BT - 1;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
-  const long long kv_off = ((long long)b * Skv + k_lo) * kv_stride + (long long)kvh * HD;
-  load_tile<T, HD, LD>(Ks, k + kv_off, kv_stride, BT, 1.f);
-  load_tile<T, HD, LD>(Vs, v + kv_off, kv_stride, BT, 1.f);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = (warp / C::NWD) * 16;       // this warp's 16 keys of S^T
+  const int qc = (warp % C::NWD) * C::QW;    // its S^T columns
+  const int half = warp & 1;                 // its half of S^T's head dim
+  const int pc = qc - half * C::QW;          // the pair's S^T columns
+  const int kb = (warp / (2 * C::NWD)) * 32;     // its 32 keys of dK, dV
+  const int dc = (warp % (2 * C::NWD)) * C::DW;  // and their columns
+  const int k_lo = kt * BK, k_hi = k_lo + BK - 1;
+  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
 
-  float dk_acc[RK][DC], dv_acc[RK][DC];
-#pragma unroll
-  for (int t = 0; t < RK; ++t)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[t][c] = dv_acc[t][c] = 0.f;
+  // the q tiles with a row that sees some key of this tile: [qt0, qt1)
+  const int nqt = Sq / BQ;
+  const int qt0 = causal ? k_lo / BQ : 0;
+  const int qt1 = window ? min(nqt, (k_hi + window - 1) / BQ + 1) : nqt;
 
-  const int nq = Sq / BT;
-  for (int qi = 0; qi < nq; ++qi) {
-    const int q_lo = qi * BT, q_hi = q_lo + BT - 1;
-    if (causal && k_lo > q_hi) continue;          // no row of the tile sees it
-    if (window && k_hi <= q_lo - window) break;   // nor any later tile
-    __syncthreads();  // the previous tile's readers are done
-    const long long q_off = ((long long)b * Sq + q_lo) * q_stride + (long long)h * HD;
-    load_tile<T, HD, HD>(Qs, q + q_off, q_stride, BT, scale);
-    load_tile<T, HD, HD>(dOs, dout + q_off, q_stride, BT, 1.f);
-    const long long row = ((long long)b * H + h) * Sq + q_lo;
-    for (int i = threadIdx.x; i < BT; i += THREADS) {
-      lse_s[i] = lse[row + i];
-      dsum_s[i] = dsum[row + i];
+  const long long kv_off = ((long long)b * Skv + k_lo) * kvs + (long long)kvh * HD;
+  load_rows<BK, HD, LD>(Ks, k + kv_off, kvs, tid);
+  load_rows<BK, HD, LD>(Vs, v + kv_off, kvs, tid);
+  auto load_q = [&](int qt, int st) {
+    const long long off = ((long long)b * Sq + qt * BQ) * qs + (long long)h * HD;
+    load_rows<BQ, HD, LD>(Qs + st * BQ * LD, q + off, qs, tid);
+    load_rows<BQ, HD, LD>(dOs + st * BQ * LD, dout + off, qs, tid);
+    if (tid < BQ / 2) {  // BQ lse and BQ D values, 16 bytes a thread
+      const int c = (tid % (BQ / 4)) * 4, which = tid / (BQ / 4);
+      const long long row = ((long long)b * H + h) * Sq + qt * BQ + c;
+      tc::cp_async16(tc::smem_u32(stat + st * 2 * BQ + which * BQ + c),
+                     (which ? dsum : lse) + row, true);
     }
-    __syncthreads();
-    probs<HD, BT>(Qs, dOs, Ks, Vs, lse_s, dsum_s, Ps, dSs, q_lo, k_lo, causal,
-                  window);
-    __syncthreads();
-    // dV += P^T dO, dK += dS^T Q over the tile's q rows
-#pragma unroll 1
-    for (int i = 0; i < BT; ++i) {
-      float qv[DC], ov[DC];
+  };
+  if (qt0 < qt1) load_q(qt0, 0);
+  tc::cp_async_commit();
+
+  float dka[2][ND][4], dva[2][ND][4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        qv[c] = Qs[i * HD + lane + 32 * c];
-        ov[c] = dOs[i * HD + lane + 32 * c];
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dka[m][n][i] = dva[m][n][i] = 0.f;
+
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int st = (qt - qt0) & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile qt has landed; every warp is done with qt - 1
+    if (qt + 1 < qt1) load_q(qt + 1, st ^ 1);
+    tc::cp_async_commit();
+    const float* Qt = Qs + st * BQ * LD;
+    const float* dOt = dOs + st * BQ * LD;
+    const float* lse_s = stat + st * 2 * BQ;
+    const float* dsum_s = lse_s + BQ;
+
+    // S^T = K (q scale)^T and dP^T = V dO^T on 16 keys x the pair's 2 QW
+    // q columns, over this warp's half of the head dimension; the halves
+    // meet through shared memory, each warp keeping its QW columns
+    float s[2 * NB][4], dp[2 * NB][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    {
+      const int d0 = half * HD / 2;
+      const float* kp = Ks + kr * LD + d0;
+      const float* vp = Vs + kr * LD + d0;
+      const float* qp = Qt + pc * LD + d0;
+      const float* op = dOt + pc * LD + d0;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const FragA ka = frag_a<LD>(kp + kk * 8, lane, 1.f);
+        const FragA va = frag_a<LD>(vp + kk * 8, lane, 1.f);
+#pragma unroll
+        for (int n = 0; n < 2 * NB; ++n) {
+          const int o = 8 * n * LD + kk * 8;
+          mma3(s[n], ka, frag_b_rows<LD>(qp + o, lane, scale));
+          mma3(dp[n], va, frag_b_rows<LD>(op + o, lane, 1.f));
+        }
+      }
+    }
+    float sk[NB][4], dpk[NB][4];  // this warp's QW columns, both halves summed
+    pair_sum<NB>(xch, warp, lane, half, s, dp, sk, dpk, 1 + C::NWK + warp / 2);
+
+    // P^T and dS^T: key rows kr + g (+ 8), q columns qc + 8n + 2t (+ 1)
+    const int q_lo = qt * BQ;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k_lo + kr + g + 8 * (i >> 1);
+        const int c = qc + 8 * n + 2 * t + (i & 1), qpos = q_lo + c;
+        bool ok = true;
+        if (causal) ok = key <= qpos;
+        if (window) ok = ok && key > qpos - window;
+        const float p = ok ? expf(sk[n][i] - lse_s[c]) : 0.f;
+        sk[n][i] = p;
+        dpk[n][i] = p * (dpk[n][i] - dsum_s[c]);
+      }
+      store_pairs<LDP>(Ps + kr * LDP + qc + 8 * n, lane, sk[n]);
+      store_pairs<LDP>(dSs + kr * LDP + qc + 8 * n, lane, dpk[n]);
+    }
+    // the columns of the 32 keys' two groups are in
+    bar_sync(1 + warp / (2 * C::NWD), 2 * C::NWD * 32);
+
+    // dV += P^T dO and dK += dS^T (q scale): 32 keys x this warp's DW
+    // columns, each B fragment split once for both 16-key halves
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      FragA pa[2], da[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        pa[m] = frag_a_pairs<LDP>(Ps + (kb + 16 * m) * LDP + kk * 8, lane);
+        da[m] = frag_a_pairs<LDP>(dSs + (kb + 16 * m) * LDP + kk * 8, lane);
       }
 #pragma unroll
-      for (int t = 0; t < RK; ++t) {
-        const int j = warp + WARPS * t;
-        const float p = Ps[i * BT + j], ds = dSs[i * BT + j];
+      for (int n = 0; n < ND; ++n) {
+        const int o = kk * 8 * LD + dc + 8 * n;
+        const FragB bo = frag_b_cols<LD>(dOt + o, lane, 1.f);
+        const FragB bq = frag_b_cols<LD>(Qt + o, lane, scale);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv_acc[t][c] = fmaf(p, ov[c], dv_acc[t][c]);
-          dk_acc[t][c] = fmaf(ds, qv[c], dk_acc[t][c]);
+        for (int m = 0; m < 2; ++m) {
+          mma3(dva[m][n], pa[m], bo);
+          mma3(dka[m][n], da[m], bq);
         }
       }
     }
   }
+  tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int t = 0; t < RK; ++t) {
-    const int j = warp + WARPS * t;
-    const long long o = (((long long)b * Skv + k_lo + j) * H + h) * HD;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[o + lane + 32 * c] = dk_acc[t][c];
-      dv[o + lane + 32 * c] = dv_acc[t][c];
+    for (int r = 0; r < 2; ++r) {
+      const int key = k_lo + kb + 16 * m + g + 8 * r;
+      const long long o = (((long long)b * Skv + key) * H + h) * HD + dc + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<float2*>(dk + o + 8 * n) =
+            make_float2(dka[m][n][2 * r], dka[m][n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + o + 8 * n) =
+            make_float2(dva[m][n][2 * r], dva[m][n][2 * r + 1]);
+      }
     }
-  }
 }
 
-template <typename T, int HD, int BT>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ dsum,
-                T* __restrict__ dq, int Sq, int Skv, int H, int KV, int causal,
-                int window, float scale) {
-  constexpr int LD = HD + 1, RW = BT / WARPS, DC = HD / 32;
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ dsum,
+                       float* __restrict__ dq, int Sq, int Skv, int H, int KV,
+                       int causal, int window, float scale) {
+  using C = F32Dq<HD>;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDS = C::LDS;
+  constexpr int NB = C::KW / 8, ND = C::DW / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                 // BT x LD
-  float* Vs = Ks + BT * LD;         // BT x LD
-  float* Qs = Vs + BT * LD;         // BT x HD, scaled
-  float* dOs = Qs + BT * HD;        // BT x HD
-  float* dSs = dOs + BT * HD;       // BT x BT
-  float* lse_s = dSs + BT * BT;     // BT
-  float* dsum_s = lse_s + BT;       // BT
+  float* Qs = smem;                  // BQ x LD
+  float* dOs = Qs + BQ * LD;         // BQ x LD
+  float* Ks = dOs + BQ * LD;         // two stages of BK x LD
+  float* Vs = Ks + 2 * BK * LD;      // two stages of BK x LD
+  float* dSs = Vs + 2 * BK * LD;     // BQ x LDS
+  float4* xch = reinterpret_cast<float4*>(dSs + BQ * LDS);  // pair sums
 
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q_lo = qi * BT, q_hi = q_lo + BT - 1;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
-  const long long q_off = ((long long)b * Sq + q_lo) * q_stride + (long long)h * HD;
-  load_tile<T, HD, HD>(Qs, q + q_off, q_stride, BT, scale);
-  load_tile<T, HD, HD>(dOs, dout + q_off, q_stride, BT, 1.f);
-  const long long row = ((long long)b * H + h) * Sq + q_lo;
-  for (int i = threadIdx.x; i < BT; i += THREADS) {
-    lse_s[i] = lse[row + i];
-    dsum_s[i] = dsum[row + i];
-  }
+  // q tiles in the slow grid dimension, causal ones with the most visible
+  // keys first, for every head
+  const int nqt = Sq / BQ;
+  const int qt = causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int h = blockIdx.x % H, b = blockIdx.x / H, kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = (warp / C::NWD) * 16;       // this warp's 16 q rows of S
+  const int kc = (warp % C::NWD) * C::KW;    // its S, dP columns
+  const int half = warp & 1;                 // its half of S's head dim
+  const int pc = kc - half * C::KW;          // the pair's S columns
+  const int rb = (warp / (2 * C::NWD)) * 32;     // its 32 q rows of dQ
+  const int dc = (warp % (2 * C::NWD)) * C::DW;  // and their columns
+  const int q_lo = qt * BQ, q_hi = q_lo + BQ - 1;
+  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
 
-  float acc[RW][DC];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+  // the key tiles some row of this q tile can see: [kt0, kt1)
+  const int nkt = Skv / BK;
+  const int kt1 = causal ? min(nkt, q_hi / BK + 1) : nkt;
+  const int kt0 = window ? max(0, q_lo - window + 1) / BK : 0;
 
-  const int nk = Skv / BT;
-  for (int ki = 0; ki < nk; ++ki) {
-    const int k_lo = ki * BT, k_hi = k_lo + BT - 1;
-    if (causal && k_lo > q_hi) break;              // past the causal frontier
-    if (window && k_hi <= q_lo - window) continue;  // wholly outside the band
-    __syncthreads();  // the previous tile's readers are done (and Q is loaded)
-    const long long kv_off = ((long long)b * Skv + k_lo) * kv_stride + (long long)kvh * HD;
-    load_tile<T, HD, LD>(Ks, k + kv_off, kv_stride, BT, 1.f);
-    load_tile<T, HD, LD>(Vs, v + kv_off, kv_stride, BT, 1.f);
-    __syncthreads();
-    probs<HD, BT>(Qs, dOs, Ks, Vs, lse_s, dsum_s, nullptr, dSs, q_lo, k_lo,
-                  causal, window);
-    __syncwarp();  // each warp reads back only the dS rows it wrote
-    // dQ += dS K over the tile's keys
-#pragma unroll 1
-    for (int j = 0; j < BT; ++j) {
-      float kk[DC];
+  const long long q_off = ((long long)b * Sq + q_lo) * qs + (long long)h * HD;
+  load_rows<BQ, HD, LD>(Qs, q + q_off, qs, tid);
+  load_rows<BQ, HD, LD>(dOs, dout + q_off, qs, tid);
+  const float* kb = k + (long long)b * Skv * kvs + (long long)kvh * HD;
+  const float* vb = v + (long long)b * Skv * kvs + (long long)kvh * HD;
+  auto load_kv = [&](int kt, int st) {
+    const long long off = (long long)kt * BK * kvs;
+    load_rows<BK, HD, LD>(Ks + st * BK * LD, kb + off, kvs, tid);
+    load_rows<BK, HD, LD>(Vs + st * BK * LD, vb + off, kvs, tid);
+  };
+  if (kt0 < kt1) load_kv(kt0, 0);
+  tc::cp_async_commit();
+
+  // this thread's rows: q_lo + qr + g (r = 0) and + 8 (r = 1)
+  const long long srow = ((long long)b * H + h) * Sq + q_lo + qr + g;
+  const float lse_r[2] = {lse[srow], lse[srow + 8]};
+  const float ds_r[2] = {dsum[srow], dsum[srow + 8]};
+
+  float dqa[2][ND][4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kk[c] = Ks[j * LD + lane + 32 * c];
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float ds = dSs[(warp * RW + r) * BT + j];
+    for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(ds, kk[c], acc[r][c]);
+      for (int i = 0; i < 4; ++i) dqa[m][n][i] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt1) load_kv(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    const float* Kt = Ks + st * BK * LD;
+    const float* Vt = Vs + st * BK * LD;
+
+    // S = (q scale) K^T and dP = dO V^T on 16 q rows x the pair's 2 KW
+    // keys, over this warp's half of the head dimension, as in dkv
+    float s[2 * NB][4], dp[2 * NB][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    {
+      const int d0 = half * HD / 2;
+      const float* qp = Qs + qr * LD + d0;
+      const float* op = dOs + qr * LD + d0;
+      const float* kp = Kt + pc * LD + d0;
+      const float* vp = Vt + pc * LD + d0;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const FragA qa = frag_a<LD>(qp + kk * 8, lane, scale);
+        const FragA oa = frag_a<LD>(op + kk * 8, lane, 1.f);
+#pragma unroll
+        for (int n = 0; n < 2 * NB; ++n) {
+          const int o = 8 * n * LD + kk * 8;
+          mma3(s[n], qa, frag_b_rows<LD>(kp + o, lane, 1.f));
+          mma3(dp[n], oa, frag_b_rows<LD>(vp + o, lane, 1.f));
+        }
+      }
+    }
+    float sk[NB][4], dpk[NB][4];  // this warp's KW columns, both halves summed
+    pair_sum<NB>(xch, warp, lane, half, s, dp, sk, dpk, 1 + C::NWQ + warp / 2);
+
+    // dS = P (dP - D): q rows qr + g (+ 8), key columns kc + 8n + 2t (+ 1)
+    const int k_lo = kt * BK;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1, row = q_lo + qr + g + 8 * r;
+        const int key = k_lo + kc + 8 * n + 2 * t + (i & 1);
+        bool ok = true;
+        if (causal) ok = key <= row;
+        if (window) ok = ok && key > row - window;
+        const float p = ok ? expf(sk[n][i] - lse_r[r]) : 0.f;
+        dpk[n][i] = p * (dpk[n][i] - ds_r[r]);
+      }
+      store_pairs<LDS>(dSs + qr * LDS + kc + 8 * n, lane, dpk[n]);
+    }
+    // the columns of the 32 rows' two groups are in
+    bar_sync(1 + warp / (2 * C::NWD), 2 * C::NWD * 32);
+
+    // dQ += dS K: 32 q rows x this warp's DW columns
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      FragA da[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        da[m] = frag_a_pairs<LDS>(dSs + (rb + 16 * m) * LDS + kk * 8, lane);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const FragB bk = frag_b_cols<LD>(Kt + kk * 8 * LD + dc + 8 * n, lane, 1.f);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma3(dqa[m][n], da[m], bk);
       }
     }
   }
+  tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    T* orow = dq + (((long long)b * Sq + q_lo + warp * RW + r) * H + h) * HD;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      orow[lane + 32 * c] = spot::from_f32<T>(acc[r][c] * scale);
-  }
+    for (int r = 0; r < 2; ++r) {
+      float* orow = dq + ((long long)b * Sq + q_lo + rb + 16 * m + g + 8 * r) * qs +
+                    (long long)h * HD + dc + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(dqa[m][n][2 * r] * scale, dqa[m][n][2 * r + 1] * scale);
+    }
 }
 
 // ---------------------------------------------------------------------------
 // dkv in bfloat16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-namespace tc = spot::tc;
 using bf16 = __nv_bfloat16;
 
 constexpr int TC_B = 64;              // keys per CTA, q rows per tile
@@ -668,41 +966,38 @@ struct Args {
   float scale;
 };
 
-template <typename T, int HD>
-int launch_dkv(const Args& a, cudaStream_t s) {
-  constexpr int BT = tile_rows<HD>();
-  constexpr size_t smem = dkv_smem<HD, BT>();
-  if (a.Sq % BT || a.Skv % BT) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_dkv_kernel<T, HD, BT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int HD>
+int launch_dkv_tf32x3(const Args& a, cudaStream_t s) {
+  using C = F32Dkv<HD>;
+  if (a.Sq % C::BQ || a.Skv % C::BK) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_dkv_tf32x3_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.Skv / BT, a.H, a.B);
-  kern<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  const dim3 grid(a.H * a.B, a.Skv / C::BK);
+  kern<<<grid, F_THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Skv, a.H,
-      a.KV, a.causal, a.window, a.scale);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.KV,
+      a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int launch_dq(const Args& a, cudaStream_t s) {
-  constexpr int BT = tile_rows<HD>();
-  constexpr size_t smem = dq_smem<HD, BT>();
-  if (a.Sq % BT || a.Skv % BT) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_dq_kernel<T, HD, BT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int HD>
+int launch_dq_tf32x3(const Args& a, cudaStream_t s) {
+  using C = F32Dq<HD>;
+  if (a.Sq % C::BQ || a.Skv % C::BK) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_dq_tf32x3_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.Sq / BT, a.H, a.B);
-  kern<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  const dim3 grid(a.H * a.B, a.Sq / C::BQ);
+  kern<<<grid, F_THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<T*>(a.dq), a.Sq, a.Skv, a.H, a.KV, a.causal, a.window,
-      a.scale);
+      static_cast<float*>(a.dq), a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -741,16 +1036,16 @@ int launch_dq_wgmma(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// both passes route by dtype alone: bfloat16 on the tensor cores, float32
-// on the CUDA cores (as the forward does)
+// both passes route by dtype alone: bfloat16 on wgmma, float32 on mma.sync
+// in 3xTF32
 template <typename T, int HD, bool DKV>
 int launch(const Args& a, cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
     if constexpr (DKV) return launch_dkv_wgmma<HD>(a, s);
     else return launch_dq_wgmma<HD>(a, s);
   } else {
-    if constexpr (DKV) return launch_dkv<T, HD>(a, s);
-    else return launch_dq<T, HD>(a, s);
+    if constexpr (DKV) return launch_dkv_tf32x3<HD>(a, s);
+    else return launch_dq_tf32x3<HD>(a, s);
   }
 }
 
@@ -816,6 +1111,27 @@ extern "C" int spot_flash_attention_dq_wgmma_smem(int hd) {
     case 96: return TcDq<96>::SMEM;
     case 128: return TcDq<128>::SMEM;
     case 256: return TcDq<256>::SMEM;
+    default: return -1;
+  }
+}
+
+// dynamic shared memory of the float32 (3xTF32) dkv and dq passes at head dim hd
+extern "C" int spot_flash_attention_dkv_tf32x3_smem(int hd) {
+  switch (hd) {
+    case 64: return F32Dkv<64>::SMEM;
+    case 96: return F32Dkv<96>::SMEM;
+    case 128: return F32Dkv<128>::SMEM;
+    case 256: return F32Dkv<256>::SMEM;
+    default: return -1;
+  }
+}
+
+extern "C" int spot_flash_attention_dq_tf32x3_smem(int hd) {
+  switch (hd) {
+    case 64: return F32Dq<64>::SMEM;
+    case 96: return F32Dq<96>::SMEM;
+    case 128: return F32Dq<128>::SMEM;
+    case 256: return F32Dq<256>::SMEM;
     default: return -1;
   }
 }

@@ -164,16 +164,26 @@ def _dims(q, k):
     return B, Sq, Skv, H, KV, hd
 
 
-def _variant(q) -> str:
-    """The kernel a dtype selects, fixed: bfloat16 runs all three passes
-    (the forward, dkv and dq) on the tensor cores (wgmma), float32 on the
-    CUDA cores; the C entry points dispatch on the same dtype code."""
-    return "wgmma" if q.dtype == torch.bfloat16 else "cudacore"
+# The kernel each dtype selects for each pass, fixed: bfloat16 runs the
+# forward, dkv and dq on the tensor cores (wgmma); float32 runs the forward
+# on the CUDA cores and dkv and dq on the tensor cores in 3xTF32 (mma.sync).
+# The C entry points dispatch on the same dtype code.
+VARIANTS = {torch.bfloat16: {"fwd": "wgmma", "dkv": "wgmma", "dq": "wgmma"},
+            torch.float32: {"fwd": "cudacore", "dkv": "tf32x3",
+                            "dq": "tf32x3"}}
 
 
-def _tma_aligned(t: torch.Tensor) -> torch.Tensor:
-    """The bf16 forward reads q, k and v through TMA tensor maps, whose
-    base address must be 16-byte aligned: a view that starts elsewhere is
+def _count(q, pass_: str) -> None:
+    """One launch of ``pass_`` on ``q``'s dtype: counted under the pass and
+    under the variant the dtype selects."""
+    _lib.LAUNCHES[f"flash_attention_{pass_}"] += 1
+    _lib.LAUNCHES[f"flash_attention_{pass_}_{VARIANTS[q.dtype][pass_]}"] += 1
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward reads q, k and v through TMA tensor maps, and the
+    backward passes copy their tiles 16 bytes at a time (cp.async): a base
+    address must be 16-byte aligned, so a view that starts elsewhere is
     copied."""
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -181,7 +191,7 @@ def _tma_aligned(t: torch.Tensor) -> torch.Tensor:
 def _launch_fwd(q, k, v, causal, window):
     q, k, v = _operands("flash_attention_fwd", q, k, v)
     if q.dtype == torch.bfloat16:
-        q, k, v = _tma_aligned(q), _tma_aligned(k), _tma_aligned(v)
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     B, Sq, Skv, H, KV, hd = _dims(q, k)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -192,8 +202,7 @@ def _launch_fwd(q, k, v, causal, window):
         B, Sq, Skv, H, KV, hd, _lib.DTYPE_CODES[q.dtype], int(bool(causal)),
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_fwd")
-    _lib.LAUNCHES["flash_attention_fwd"] += 1
-    _lib.LAUNCHES["flash_attention_fwd_" + _variant(q)] += 1
+    _count(q, "fwd")
     return o, lse
 
 
@@ -204,9 +213,11 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, causal: bool = True,
     if q.device.type == "cpu":
         return attention_dkv_ref(q, k, v, do, lse, dsum, causal=causal,
                                  window=window)
-    q, k, v, do = _operands("flash_attention_dkv", q, k, v, do)
+    q, k, v, do = map(_aligned16, _operands("flash_attention_dkv", q, k, v,
+                                           do))
     B, Sq, Skv, H, KV, hd = _dims(q, k)
-    lse, dsum = _stats("flash_attention_dkv", lse, dsum, (B, H, Sq))
+    lse, dsum = map(_aligned16, _stats("flash_attention_dkv", lse, dsum,
+                                       (B, H, Sq)))
     dk = torch.empty((B, Skv, H, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
@@ -217,8 +228,7 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, causal: bool = True,
         B, Sq, Skv, H, KV, hd, _lib.DTYPE_CODES[q.dtype], int(bool(causal)),
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_dkv")
-    _lib.LAUNCHES["flash_attention_dkv"] += 1
-    _lib.LAUNCHES["flash_attention_dkv_" + _variant(q)] += 1
+    _count(q, "dkv")
     return dk, dv
 
 
@@ -228,9 +238,11 @@ def flash_attention_dq(q, k, v, do, lse, dsum, causal: bool = True,
     if q.device.type == "cpu":
         return attention_dq_ref(q, k, v, do, lse, dsum, causal=causal,
                                 window=window)
-    q, k, v, do = _operands("flash_attention_dq", q, k, v, do)
+    q, k, v, do = map(_aligned16, _operands("flash_attention_dq", q, k, v,
+                                           do))
     B, Sq, Skv, H, KV, hd = _dims(q, k)
-    lse, dsum = _stats("flash_attention_dq", lse, dsum, (B, H, Sq))
+    lse, dsum = map(_aligned16, _stats("flash_attention_dq", lse, dsum,
+                                       (B, H, Sq)))
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -240,6 +252,5 @@ def flash_attention_dq(q, k, v, do, lse, dsum, causal: bool = True,
         B, Sq, Skv, H, KV, hd, _lib.DTYPE_CODES[q.dtype], int(bool(causal)),
         int(window), 1.0 / math.sqrt(hd), _lib.stream_ptr(q.device))
     _lib.check(err, "flash_attention_dq")
-    _lib.LAUNCHES["flash_attention_dq"] += 1
-    _lib.LAUNCHES["flash_attention_dq_" + _variant(q)] += 1
+    _count(q, "dq")
     return dq

@@ -250,3 +250,23 @@ def test_bfloat16_host_round_trip_without_ml_dtypes():
     t = tser.numpy_to_tensor(want, "bfloat16")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(tser.to_host(t), want.view(np.uint16))
+
+
+def test_unflatten_like_holds_no_leaf_once_returned():
+    """A restore rebuilds the state through unflatten_like; once the state
+    is dropped its leaves must be freed at once, not at the next garbage
+    collection (on a card they are device memory)."""
+    import gc
+    import weakref
+    leaf = torch.zeros(4)
+    alive = weakref.ref(leaf)
+    gc.disable()
+    try:
+        state = tser.unflatten_like({"a": 0, "b": [0, None]},
+                                    {"a": leaf, "b/0": torch.ones(2)})
+        assert state["a"] is leaf and state["b"][1] is None
+        del state, leaf
+        assert alive() is None
+    finally:
+        gc.enable()
+

@@ -27,7 +27,8 @@ from repro_torch.kernels import fingerprint as fp  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_ref,  # noqa: E402
                                                   flash_decode)
-from repro_torch.kernels.flash_attention import (attention_bwd_ref,  # noqa: E402
+from repro_torch.kernels.flash_attention import (VARIANTS,  # noqa: E402
+                                                 attention_bwd_ref,
                                                  attention_dkv_ref,
                                                  attention_dq_ref,
                                                  attention_ref,
@@ -250,19 +251,20 @@ def test_flash_attention_forward_is_deterministic(cuda):
     assert all(same_bits(a, b) for a, b in zip(first, again))
 
 
-@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
-                                           (torch.float32, "cudacore")])
-def test_flash_kernels_route_by_dtype(cuda, dtype, variant):
-    """bf16 runs the forward, the dkv and the dq pass on the tensor cores,
-    float32 on the CUDA cores; every launch also counts under its pass."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_route_by_dtype(cuda, dtype):
+    """bf16 runs the forward, the dkv and the dq pass on the tensor cores
+    (wgmma); float32 runs the forward on the CUDA cores and dkv and dq on
+    the tensor cores in 3xTF32; every launch also counts under its pass."""
     q, do = (randn((1, 128, 4, 128), dtype, s, cuda) for s in (1, 2))
     k, v = (randn((1, 128, 1, 128), dtype, s, cuda) for s in (3, 4))
-    other = "cudacore" if variant == "wgmma" else "wgmma"
     before = dict(_lib.LAUNCHES)
     o, lse = flash_attention_fwd(q, k, v, True, 0)
     flash_attention_bwd(q, k, v, o, lse, do, True, 0)
     torch.cuda.synchronize()
-    for p in ("fwd", "dkv", "dq"):
+    other_dtype = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for p, variant in VARIANTS[dtype].items():
+        other = VARIANTS[other_dtype][p]
         name = f"flash_attention_{p}"
         assert _lib.LAUNCHES[name] == before[name] + 1
         assert _lib.LAUNCHES[f"{name}_{variant}"] == before[f"{name}_{variant}"] + 1
@@ -279,6 +281,13 @@ DECODE_GPU_CASES = [
     (3, 4, 2, 64, 333, 333, torch.float32),
     (1, 10, 1, 256, 2048, 77, torch.float32),
     (2, 8, 8, 128, 100, 33, torch.bfloat16),
+    # phi3-mini's heads: 32 of 96 (three columns a lane), MHA
+    (2, 32, 32, 96, 2048, 1, torch.bfloat16),
+    (2, 32, 32, 96, 2048, 1000, torch.bfloat16),
+    (2, 32, 32, 96, 2048, 2048, torch.bfloat16),
+    (2, 32, 32, 96, 333, 1, torch.float32),
+    (2, 32, 32, 96, 333, 170, torch.float32),
+    (2, 32, 32, 96, 333, 333, torch.float32),
 ]
 
 
@@ -371,6 +380,7 @@ FLASH_BWD_GPU_CASES = [
     (1, 77, 4, 2, 128, 16, torch.float32),        # padding path, window
     (2, 256, 8, 2, 64, 64, torch.float32),        # GQA, window
     (1, 128, 8, 4, 128, 0, torch.bfloat16),
+    (1, 1024, 4, 1, 256, 512, torch.float32),     # gemma3's local layers
 ]
 
 
@@ -449,6 +459,58 @@ def test_bf16_forward_and_dq_repeat_bit_for_bit(cuda):
             dq2 = flash_attention_dq(q, k, v, do, lse, dsum, True, window)
             assert same_bits(o, o2) and same_bits(lse, lse2), window
             assert same_bits(dq, dq2), window
+
+
+def test_float32_dkv_and_dq_repeat_bit_for_bit(cuda):
+    """The 3xTF32 dkv and dq passes, 20 runs each: a stage of the cp.async
+    ring read before its copies landed, or refilled while a warp still read
+    it, or P / dS read before the warps that share the rows wrote them,
+    would show as a rare wrong tile."""
+    B, S, H, KV, hd = 2, 448, 4, 1, 256
+    q, do = (randn((B, S, H, hd), torch.float32, s, cuda) for s in (25, 26))
+    k, v = (randn((B, S, KV, hd), torch.float32, s, cuda) for s in (27, 28))
+    for window in (0, 200):
+        o, lse = flash_attention_fwd(q, k, v, True, window)
+        dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, dsum, True, window)
+        dk, dv = flash_attention_dkv(*args)
+        dq = flash_attention_dq(*args)
+        for _ in range(20):
+            dk2, dv2 = flash_attention_dkv(*args)
+            assert same_bits(dk, dk2) and same_bits(dv, dv2), window
+            assert same_bits(dq, flash_attention_dq(*args)), window
+
+
+@pytest.mark.parametrize("Sq,Skv,hd", [(128, 192, 64), (192, 128, 256),
+                                       (64, 320, 96)])
+def test_float32_backward_non_causal_aligned(cuda, Sq, Skv, hd):
+    """Cross attention (no mask, Sq != Skv): every q tile sees every key
+    tile."""
+    q, do = (randn((1, Sq, 4, hd), torch.float32, s, cuda) for s in (1, 2))
+    k, v = (randn((1, Skv, 2, hd), torch.float32, s, cuda) for s in (3, 4))
+    o, lse = flash_attention_fwd(q, k, v, False, 0)
+    got = flash_attention_bwd(q, k, v, o, lse, do, False, 0)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert_grad_close(g, w, name)
+
+
+def test_float32_backward_takes_views_off_a_16_byte_boundary(cuda):
+    """The backward passes copy their tiles 16 bytes at a time: views that
+    start 4 bytes past a boundary (as the 4-byte operand check allows) are
+    copied first."""
+    B, S, H, KV, hd = 1, 192, 4, 2, 96
+    n, m = B * S * H * hd, B * S * KV * hd
+    qo = randn((2 * n + 1,), torch.float32, 41, cuda)[1:]
+    q, do = qo.view(2, B, S, H, hd).unbind(0)
+    kv = randn((2 * m + 1,), torch.float32, 42, cuda)[1:]
+    k, v = kv.view(2, B, S, KV, hd).unbind(0)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and q.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v, True, 0)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, 0)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert_grad_close(g, w, name)
 
 
 def test_flash_attention_grads_run_through_the_kernels(cuda):

@@ -19,7 +19,16 @@ kernels: a bf16 forward output within one bf16 ulp (2**-7 relative) plus
 within 2e-4 * max(1, max|plain|); dQ (bf16) within that plus two bf16 ulps
 of each element. More checks record why the kernels split: the split's
 error is at most 1/16 of the error of P and dS rounded once to bf16, and
-dS rounded once misses dQ's tolerance."""
+dS rounded once misses dQ's tolerance.
+
+The float32 dkv and dq kernels (3xTF32 on mma.sync) are emulated the same
+way: every operand of the five products rounded to TF32 as ``cvt.rna``
+does (nearest, ties away from zero, 10 explicit mantissa bits, on the
+float32 bits), split into hi = tf32(x) and lo = tf32(x - hi), every product
+taken as hi lo + lo hi + hi hi (each term exact in float32) with float32
+sums; q scaled before its split, dQ scaled once at the end. Held to the
+unchanged float32 gradient tolerance, against float64 beside plain float32,
+and against one TF32 rounding."""
 
 import math
 
@@ -298,3 +307,133 @@ def test_single_rounding_misses_the_tolerances():
     for got, w in zip(emulate_dkv(q, k, v, do, lse, dsum, 0, parts=1), plain):
         lim = GRAD_TOL * max(1.0, float(w.abs().max()))
         assert float((got - w).abs().max()) > lim
+
+
+# ---------------------------------------------------------------------------
+# float32 dkv and dq: 3xTF32
+# ---------------------------------------------------------------------------
+
+CASES32 = [
+    # B, S, H, KV, hd, window
+    (1, 256, 4, 1, 256, 0),                   # gemma3's heads (GQA 4:1)
+    (1, 256, 4, 1, 256, 100),                 # and a window
+    (1, 192, 4, 4, 96, 0),                    # phi3-mini's head dim
+    (1, 192, 4, 4, 96, 48),
+]
+IDS32 = [f"hd{c[4]}-w{c[5]}-kv{c[3]}" for c in CASES32]
+# measured on CASES32: 3xTF32 errs 0.85-1.67x as much as plain float32
+# against float64 (dk, dv, dq), and uses at most 0.73% of the gradient
+# tolerance against plain float32; one TF32 rounding lands at 1.46-4.70x
+# the tolerance (2.25x, 3.53x, 1.46x for dk, dv, dq at gemma3's hd 256)
+TF32X3_ERR_RATIO = 2.0
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32: round float32 to 10 explicit mantissa bits, to
+    nearest with ties away from zero, on the bits (the low 13 cleared)."""
+    b = x.to(f32).contiguous().numpy().view(np.uint32)
+    r = (b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(r.view(np.float32).copy())
+
+
+def product(eq, a, b, scheme):
+    """One product as a kernel takes it: "f64", plain "f32", "tf32x3"
+    (hi lo + lo hi + hi hi, float32 sums) or "tf32" (hi hi)."""
+    if scheme == "f64":
+        return torch.einsum(eq, a.double(), b.double())
+    if scheme == "f32":
+        return torch.einsum(eq, a, b)
+    ah, bh = tf32(a), tf32(b)
+    if scheme == "tf32":
+        return torch.einsum(eq, ah, bh)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+            + torch.einsum(eq, ah, bh))
+
+
+def emulate_bwd32(q, k, v, do, lse, dsum, window, scheme="tf32x3"):
+    """The float32 dkv and dq kernels' arithmetic under ``scheme``: (dk, dv
+    per query head (B, Skv, H, hd), dq (B, Sq, H, hd)), float32 (float64 for
+    "f64", on the same float32 inputs)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dt = torch.float64 if scheme == "f64" else f32
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
+    qs = (q.to(dt) * scale).reshape(B, Sq, KV, G, hd)      # q widened, scaled
+    dog = do.to(dt).reshape(B, Sq, KV, G, hd)
+    kf, vf = k.to(dt), v.to(dt)
+    s = product("bqkgh,bskh->bkgqs", qs, kf, scheme).to(dt)
+    p = torch.where(mask(Sq, Skv, window),
+                    torch.exp(s - lse.to(dt).reshape(B, KV, G, Sq, 1)),
+                    torch.zeros((), dtype=dt))
+    dp = product("bqkgh,bskh->bkgqs", dog, vf, scheme).to(dt)
+    ds = p * (dp - dsum.to(dt).reshape(B, KV, G, Sq, 1))
+    dk = product("bkgqs,bqkgh->bskgh", ds, qs, scheme).reshape(B, Skv, H, hd)
+    dv = product("bkgqs,bqkgh->bskgh", p, dog, scheme).reshape(B, Skv, H, hd)
+    dq = (product("bkgqs,bskh->bqkgh", ds, kf, scheme) * scale).reshape(
+        B, Sq, H, hd)
+    return dk, dv, dq
+
+
+def inputs32(B, S, H, KV, hd, window):
+    """float32 q, k, v, dO from a seeded numpy generator, and lse and D from
+    the plain float32 forward."""
+    rng = np.random.default_rng(hd + window)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                             (B, S, H, hd)))
+    o, lse = attention_ref(q, k, v, window=window)
+    dsum = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, dsum
+
+
+def plain32(q, k, v, do, lse, dsum, window):
+    return (*attention_dkv_ref(q, k, v, do, lse, dsum, window=window),
+            attention_dq_ref(q, k, v, do, lse, dsum, window=window))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", CASES32, ids=IDS32)
+def test_emulated_tf32x3_holds_the_float32_gradient_tolerance(B, S, H, KV, hd,
+                                                              window):
+    args = inputs32(B, S, H, KV, hd, window)
+    got = emulate_bwd32(*args, window)
+    for g, w in zip(got, plain32(*args, window)):
+        assert_grad_close(g, w)
+    # the JAX package: jax.vjp of its attention_ref on the same values; the
+    # per-query-head dK and dV summed over each KV head's group
+    q, k, v, do = args[:4]
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, causal=True,
+                                                       window=window),
+                     jq, jk, jv)
+    jdq, jdk, jdv = (torch.from_numpy(np.array(x)) for x in vjp(jdo))
+    G = H // KV
+    assert_grad_close(got[0].reshape(B, S, KV, G, hd).sum(3), jdk)
+    assert_grad_close(got[1].reshape(B, S, KV, G, hd).sum(3), jdv)
+    assert_grad_close(got[2], jdq)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", CASES32, ids=IDS32)
+def test_tf32x3_errs_about_as_much_as_float32(B, S, H, KV, hd, window):
+    """Against float64 on the same inputs, 3xTF32's dK, dV and dQ err at
+    most TF32X3_ERR_RATIO times as much as plain float32's."""
+    args = inputs32(B, S, H, KV, hd, window)
+    exact = emulate_bwd32(*args, window, scheme="f64")
+    for name, x3, x, e in zip(("dk", "dv", "dq"), emulate_bwd32(*args, window),
+                              plain32(*args, window), exact):
+        err3 = float((x3.double() - e).abs().max())
+        err = float((x.double() - e).abs().max())
+        assert err3 <= TF32X3_ERR_RATIO * err, (name, err3, err)
+
+
+def test_single_tf32_rounding_misses_the_gradient_tolerance():
+    """Why every product is split: each operand rounded once to TF32 (about
+    2**-11 relative) puts dK, dV and dQ outside the float32 gradient
+    tolerance at gemma3's head dim."""
+    args = inputs32(1, 256, 4, 1, 256, 0)
+    for name, x1, w in zip(("dk", "dv", "dq"),
+                           emulate_bwd32(*args, 0, scheme="tf32"),
+                           plain32(*args, 0)):
+        lim = GRAD_TOL * max(1.0, float(w.abs().max()))
+        assert float((x1 - w).abs().max()) > lim, name

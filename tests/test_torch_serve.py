@@ -1,9 +1,9 @@
 """The port's serving path (prefill, decode, greedy generation) for gemma3
-(ring + full caches), recurrentgemma (RG-LRU + ring) and falcon-mamba
-(conv window + float32 SSM state) against the JAX package, on the
-reference's own parameters and caches (carried across with
-``serve.state_from_numpy``), and serving states that interchange through
-both packages' checkpoint stores.
+(ring + full caches), recurrentgemma (RG-LRU + ring), falcon-mamba (conv
+window + float32 SSM state) and phi3-mini (full MHA caches, untied head)
+against the JAX package, on the reference's own parameters and caches
+(carried across with ``serve.state_from_numpy``), and serving states that
+interchange through both packages' checkpoint stores.
 
 Smoke configs in float32: the two packages differ only in the order of
 float32 sums, so logits agree to 5e-4 (the reference's own
@@ -38,7 +38,9 @@ from repro_torch.train import state_template_on_device  # noqa: E402
 TOL = 5e-4
 B, PROMPT, NEW = 2, 12, 8
 TOTAL = PROMPT + NEW
-ARCHS = ["gemma3_1b", "recurrentgemma_2b", "falcon_mamba_7b"]
+ARCHS = ["gemma3_1b", "recurrentgemma_2b", "falcon_mamba_7b", "phi3_mini_3p8b"]
+TIED = {"gemma3_1b": True, "recurrentgemma_2b": True, "falcon_mamba_7b": False,
+        "phi3_mini_3p8b": False}
 
 
 def to_numpy(tree) -> dict[str, np.ndarray]:
@@ -63,6 +65,7 @@ class Ref:
     """The reference's results for one smoke model, computed once."""
 
     def __init__(self, arch):
+        self.arch = arch
         self.jc = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
         self.tc = dataclasses.replace(get_smoke_config(arch), dtype="float32")
         assert dataclasses.asdict(self.jc) == dataclasses.asdict(self.tc)
@@ -89,11 +92,12 @@ def ref(request):
 
 def test_smoke_params_carry_across_with_tied_embeddings(ref):
     """Every leaf carries across by name; a tied model (gemma3,
-    recurrentgemma) has no lm_head leaf, an untied one (falcon-mamba) has."""
+    recurrentgemma) has no lm_head leaf, an untied one (falcon-mamba,
+    phi3-mini) has."""
     names = list(tser.flatten_state(ref.tparams))
     assert names == list(to_numpy(ref.jparams))
     assert ("lm_head" in ref.tparams) == (not ref.tc.tie_embeddings)
-    assert ref.tc.tie_embeddings == (ref.tc.family != "ssm")
+    assert ref.tc.tie_embeddings == TIED[ref.arch]
 
 
 def test_forward_logits_match(ref):
