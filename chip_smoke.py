@@ -133,8 +133,7 @@ def nvidia_smi() -> str:
 def time_ms(fn, reps: int = 20, runs: int = 5, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: CUDA events around ``reps``
     back-to-back calls, divided by ``reps``; the median of ``runs`` such
-    windows. The checkpoint and scan operands exceed the L2, and the
-    decode cases rotate cache copies that together exceed it, so those
+    windows. The checkpoint and scan operands exceed the L2, so those
     calls read from device memory; the flash forward is bound by
     operations."""
     import torch
@@ -151,6 +150,47 @@ def time_ms(fn, reps: int = 20, runs: int = 5, warmup: int = 3) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
+_graph_stream = None   # one side stream for every capture: cuBLAS keeps a
+                       # workspace for each stream it has run on
+
+
+def graph_ms(fns, replays: int = 10, runs: int = 5) -> float:
+    """Device time of one call where the host's launch path would hide
+    it: one call of each of ``fns`` (one per rotated operand copy)
+    captured into a CUDA graph after a warm-up on the capture stream, the
+    graph replayed ``replays`` times between CUDA events, divided by the
+    calls; the median of ``runs`` such windows."""
+    import torch
+    global _graph_stream
+    if _graph_stream is None:
+        _graph_stream = torch.cuda.Stream()
+    side = _graph_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(replays):
+            graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / (replays * len(fns)))
+    del graph
     return statistics.median(times)
 
 
@@ -195,7 +235,7 @@ def phase_kernels(cfg, dev) -> dict:
                                                  fingerprint_blocks_ref,
                                                  fingerprint_diff,
                                                  fingerprint_diff_ref)
-    from repro_torch.kernels.quantize import (absmax, absmax_ref,
+    from repro_torch.kernels.quantize import (absmax, absmax_grid, absmax_ref,
                                               dequantize_int8,
                                               dequantize_int8_ref,
                                               quantize_int8, quantize_with_inv,
@@ -241,16 +281,33 @@ def phase_kernels(cfg, dev) -> dict:
         bound=bound(embed.numel() * 2 + nb * 9, embed.numel() * 6),
         shape=list(embed.shape), dtype="bfloat16")
 
-    # absmax: moment (f32), embed (bf16), ragged, NaN
-    for x in (moment, embed, cases[3], torch.randn(7, device=dev)):
-        need(same_bits(absmax(x)[0], absmax_ref(x)), f"absmax mismatch {x.dtype}")
+    # absmax: moment (f32), embed (bf16), ragged, a whole trip of the
+    # resident grid and one element either side, a misaligned view, NaN
+    grid, trip = absmax_grid(torch.float32)
+    flat = moment.reshape(-1)
+    for x in (moment, embed, cases[3], torch.randn(7, device=dev),
+              flat[:trip - 1], flat[:trip], flat[:trip + 1], flat[1:]):
+        need(same_bits(absmax(x)[0], absmax_ref(x)),
+             f"absmax mismatch {x.dtype} n={x.numel()}")
     xn = moment.clone()
     xn.view(-1)[12345] = float("nan")
     need(bool(torch.isnan(absmax(xn)[0])), "absmax dropped a NaN")
+    print(json.dumps({"absmax_grid": {"ctas": grid, "threads": 1024,
+                                      "elements_per_trip": trip,
+                                      "trips_of_the_moment":
+                                          moment.numel() / trip}}), flush=True)
+    # device time from a CUDA graph for the kernels and their library call
+    # (an eager call's host path, an allocation and two launches, can take
+    # as long as its kernels), measured in turns, three each, the median
+    # kept; the eager times beside them
+    norm = functools.partial(torch.linalg.vector_norm, moment, ord=math.inf)
+    turns = [(graph_ms([lambda: absmax(moment)], replays=20),
+              graph_ms([norm], replays=20)) for _ in range(3)]
     out["absmax"] = dict(
-        ms=time_ms(lambda: absmax(moment)),
+        grid=grid, ms=statistics.median(t[0] for t in turns),
+        library_ms=statistics.median(t[1] for t in turns),
+        eager_ms=time_ms(lambda: absmax(moment)), library_eager_ms=time_ms(norm),
         plain_ms=time_ms(lambda: absmax_ref(moment)),
-        library_ms=time_ms(lambda: torch.linalg.vector_norm(moment, ord=math.inf)),
         max_abs_err=max_abs_err(absmax(moment)[0], absmax_ref(moment)),
         bound=bound(moment.numel() * 4 + 4, moment.numel() * 2),
         shape=list(moment.shape), dtype="float32")
@@ -301,7 +358,7 @@ def phase_kernels(cfg, dev) -> dict:
         # convert, multiply
         bound=bound(q.numel() * 5, q.numel() * 2),
         shape=list(q.shape), dtype="int8->float32")
-    del embed, moment, cases, xn
+    del embed, moment, flat, norm, cases, xn
     torch.cuda.empty_cache()
     out.update(serving_kernels(dev))
     out.update(training_kernels(dev))
@@ -373,7 +430,12 @@ def serving_kernels(dev) -> dict:
     windowed row, the valid rows of a cache."""
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      decode_merge,
+                                                      decode_merge_ref,
+                                                      decode_partials,
+                                                      decode_splits,
                                                       flash_decode)
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
@@ -430,13 +492,16 @@ def serving_kernels(dev) -> dict:
     torch.cuda.empty_cache()
 
     # decode: gemma3's full cache at valid_len 2000 (not a multiple of the
-    # kernel's 32-key chunk) and its filled 512-slot ring,
-    # recurrentgemma's 2048-slot ring at its first decode step (10 heads,
-    # 1985 filled), and phi3-mini's full cache (32 heads of 96, MHA, all
-    # 2048 rows). Cache copies holding twice the L2 between them rotate
-    # through the timed calls, so each call reads its cache from device
-    # memory as a decode step does.
-    dec = {}
+    # kernel's 32-key tile) and its filled 512-slot ring, recurrentgemma's
+    # 2048-slot ring at its first decode step (10 heads, 1985 filled), and
+    # phi3-mini's full cache (32 heads of 96, MHA, all 2048 rows). Cache
+    # copies holding twice the L2 between them rotate through the timed
+    # calls, so each call reads its cache from device memory as a decode
+    # step does; kernel, plain version and SDPA are each timed from a CUDA
+    # graph of one call per copy (their host launch paths would hide a
+    # few-microsecond kernel). The row's time is the whole call: the split
+    # pass and the merge.
+    dec, merge = {}, {}
     for name, Hd, KVd, hdd, Sc, vl in (
             ("full", H, KV, hd, CACHE_LEN, PROMPT + 16),
             ("ring", H, KV, hd, 512, 512),
@@ -449,6 +514,8 @@ def serving_kernels(dev) -> dict:
         vs = [torch.randn((B, Sc, KVd, hdd), generator=g, device=dev).to(bf)
               for _ in range(n_copies)]
         o = flash_decode(qd, ks[0], vs[0], vl)
+        need(same_bits(o, flash_decode(qd, ks[0], vs[0], vl)),
+             f"flash_decode {name}: two calls differ")
         want = decode_attention_ref(qd[:, 0], ks[0], vs[0], vl)[:, None]
         err = _att_check(f"flash_decode {name}", o, want)
         q32, k32, v32 = qd.to(f32), ks[0].to(f32), vs[0].to(f32)
@@ -456,27 +523,51 @@ def serving_kernels(dev) -> dict:
                            flash_decode(q32, k32, v32, vl),
                            decode_attention_ref(q32[:, 0], k32, v32, vl)[:, None])
         del q32, k32, v32
-        kernels = itertools.cycle([functools.partial(flash_decode, qd, kc, vc, vl)
-                                   for kc, vc in zip(ks, vs)])
+        # the merge kernel alone, on the split kernel's partials
+        ws = decode_partials(qd[:, 0], ks[0], vs[0], vl)
+        mo = decode_merge(ws, bf)
+        merr = _att_check(f"decode merge {name}", mo, decode_merge_ref(ws, bf))
         qt = qd.transpose(1, 2).contiguous()               # (B,H,1,hd)
         mask = (torch.arange(Sc, device=dev) < vl)[None, None, None, :]
-        libs = itertools.cycle([
-            _sdpa(qt, kc.transpose(1, 2).contiguous(),
-                  vc.transpose(1, 2).contiguous(), attn_mask=mask)
-            for kc, vc in zip(ks, vs)])
+        splits, per = decode_splits(B, KVd, hdd, vl)
         ops = B * Hd * vl * hdd * 4
         nbytes = B * vl * KVd * hdd * 2 * 2 + qd.numel() * 2 * 2
+        ms = graph_ms([functools.partial(flash_decode, qd, kc, vc, vl)
+                       for kc, vc in zip(ks, vs)])
         dec[name] = dict(
-            ms=time_ms(lambda: next(kernels)()),
-            plain_ms=time_ms(lambda: decode_attention_ref(qd[:, 0], ks[0],
-                                                          vs[0], vl)),
-            library_ms=time_ms(lambda: next(libs)()), max_abs_err=err,
-            f32_max_abs_err=err32,
-            bound=bound(nbytes, ops, BF16_FLOPS_PER_S), tol=ATT_TOL,
-            bf16_rtol=BF16_RTOL, shape=[B, Sc, Hd, KVd, hdd], valid_len=vl,
-            cache_copies=n_copies, dtype="bfloat16")
-        del ks, vs, kernels, libs
+            ms=ms, plain_ms=graph_ms([
+                functools.partial(decode_attention_ref, qd[:, 0], kc, vc, vl)
+                for kc, vc in zip(ks, vs)], replays=3),
+            library_ms=graph_ms([
+                _sdpa(qt, kc.transpose(1, 2).contiguous(),
+                      vc.transpose(1, 2).contiguous(), attn_mask=mask)
+                for kc, vc in zip(ks, vs)]),
+            max_abs_err=err, f32_max_abs_err=err32,
+            bound=bound(nbytes, ops, BF16_FLOPS_PER_S), gb_per_s=nbytes / ms / 1e6,
+            splits=splits, keys_per_split=per, ctas=splits * KVd * B,
+            tol=ATT_TOL, bf16_rtol=BF16_RTOL, shape=[B, Sc, Hd, KVd, hdd],
+            valid_len=vl, cache_copies=n_copies, dtype="bfloat16")
+        # reads every partial once, writes the output
+        wss = [decode_partials(qd[:, 0], kc, vc, vl) for kc, vc in zip(ks, vs)]
+        merge[name] = dict(
+            ms=graph_ms([functools.partial(decode_merge, w, bf) for w in wss]),
+            plain_ms=graph_ms([functools.partial(decode_merge_ref, w, bf)
+                               for w in wss], replays=3),
+            library_ms=None, max_abs_err=merr,
+            bound=bound(ws.numel() * 4 + mo.numel() * 2,
+                        ws.numel() // (hdd + 2) * (hdd * 2 + 2)),
+            tol=ATT_TOL, bf16_rtol=BF16_RTOL, shape=list(ws.shape),
+            dtype="float32->bfloat16")
+        del ks, vs, ws, wss
+        torch.cuda.empty_cache()
     out["decode_attention"] = dict(dec["full"], cases=dec)
+    out["decode_attention_merge"] = dict(merge["full"], cases=merge)
+    print(json.dumps({"decode_cases": {
+        n: {k: c[k] for k in ("splits", "keys_per_split", "ctas", "ms",
+                              "gb_per_s", "library_ms", "bound")}
+        for n, c in dec.items()}, "decode_ptxas": {
+        n: r for n, r in ptxas_summary(_lib.ptxas_report()).items()
+        if n.startswith("decode_")}}), flush=True)
 
     # RG-LRU scan: recurrentgemma-2b's prefill, float32 gates
     W = 2560
@@ -1283,7 +1374,8 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
            "launches": counted,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     want = {"flash_attention_fwd": n_attn, "rglru_scan": n_rec,
-            "ssm_scan": n_mamba, "decode_attention": n_attn * (NEW - 1)}
+            "ssm_scan": n_mamba, "decode_attention": n_attn * (NEW - 1),
+            "decode_attention_merge": n_attn * (NEW - 1)}
     for name, n in want.items():
         need(counted[name] == n,
              f"{arch}: {counted[name]} {name} launches, expected {n}")
@@ -1431,6 +1523,11 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:201"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/decode_attention.py:30"),
+    # flash decode's second launch: the split pass's partials merged, the
+    # reference kernel's finalize across its key blocks
+    "decode_attention_merge": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:30"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan/ssm_scan.py:36"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",

@@ -41,7 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
                             "dequantize": 0, "flash_attention_fwd": 0,
                             "flash_attention_dkv": 0, "flash_attention_dq": 0,
-                            "decode_attention": 0, "ssm_scan": 0,
+                            "decode_attention": 0,
+                            # flash decode's second launch: the merge of
+                            # the split pass's partials
+                            "decode_attention_merge": 0, "ssm_scan": 0,
                             "rglru_scan": 0,
                             # the two variants of the forward, the dkv and
                             # the dq pass (each launch counts under its pass
@@ -68,6 +71,8 @@ _SIGNATURES = {
     "spot_fingerprint": (_P, _I64, _I32, _I64, _I64, _P, _P, _P, _P),
     # (x, n, dtype_code, partial, n_partial, out, stream)
     "spot_absmax": (_P, _I64, _I32, _P, _I32, _P, _P),
+    # (dtype_code) -> absmax's first-pass grid on a large tensor
+    "spot_absmax_grid": (_I32,),
     # (x, n, dtype_code, inv, q, stream)
     "spot_quantize": (_P, _I64, _I32, _F32, _P, _P),
     # (q, n, scale, dtype_code, out, stream)
@@ -92,9 +97,12 @@ _SIGNATURES = {
     "spot_flash_attention_dq_wgmma_smem": (_I32,),
     "spot_flash_attention_dkv_tf32x3_smem": (_I32,),
     "spot_flash_attention_dq_tf32x3_smem": (_I32,),
-    # (q, k, v, o, B, S, H, KV, hd, valid_len, dtype_code, scale, stream)
-    "spot_decode_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                              _I32, _I32, _F32, _P),
+    # (q, k, v, partials, B, S, H, KV, hd, valid_len, splits,
+    #  keys_per_split, dtype_code, scale * log2(e), stream)
+    "spot_decode_split": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                          _I32, _I32, _I32, _F32, _P),
+    # (partials, o, B, H, hd, splits, dtype_code, stream)
+    "spot_decode_merge": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P),
     # (a, b, h, h_last, B, S, W, dtype_code, stream)
     "spot_rglru_scan": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
     # (u, dt, A, B, C, D, y, h_last, B, S, DI, N, dtype_code, stream)

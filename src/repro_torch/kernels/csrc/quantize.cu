@@ -12,20 +12,27 @@
 // absmax and quantize, 16-byte stores of the float output for dequantize),
 // so every warp access is one contiguous span; scalar accesses for the
 // ragged tail or a misaligned pointer; float32 arithmetic in registers; one
-// pass each.
+// pass each. absmax's first pass keeps more bytes in flight: each thread
+// issues four independent 16-byte loads a trip (evict-first, __ldcs: the
+// tensor is read once), in CTAs of 1024 threads over a grid of exactly the
+// CTAs the card holds at once (its SMs times the kernel's occupancy,
+// computed once).
 //
 // Bit-exactness with the host (checkpoint/serialize.py) is the contract:
 //  * absmax is a max of non-negative floats, done on their uint32 bits
 //    (monotonic for x >= 0), so it is exact in any order. A NaN, whose bits
 //    after fabsf exceed +inf's, wins the max, which is np.max's NaN
 //    propagation (fmaxf would drop it). Per-CTA partials, then a one-CTA
-//    second pass: no atomics, deterministic.
+//    second pass, launched as a programmatic dependent of the first (it is
+//    scheduled while the partials are computed and waits for them): no
+//    atomics, deterministic.
 //  * quantize multiplies by the host-computed float32 inverse (never
 //    divides), rounds half to even (rintf == np.round), clips to +-127.
 //  * dequantize widens int8 to float32, multiplies by the float32 scale and
 //    rounds to the target with __float2bfloat16_rn / __float2half_rn, the
 //    reference's round-to-nearest-even astype.
 // Build without fast math: flushing subnormals would change absmax.
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -34,6 +41,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_PARTIALS = 1024;
+constexpr int ABSMAX_THREADS = 1024;   // absmax's first pass: two CTAs an SM
+constexpr int ABSMAX_LOADS = 4;        // independent 16-byte loads per thread and trip
 
 __device__ __forceinline__ uint32_t warp_max(uint32_t v) {
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -57,10 +66,22 @@ __device__ __forceinline__ uint32_t abs_bits(float f) {
   return __float_as_uint(fabsf(f));
 }
 
+// max |x| bits over the 16 / sizeof(T) values of one 16-byte load
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t abs_bits16(uint4 raw) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+  uint32_t m = 0;
+#pragma unroll
+  for (int k = 0; k < 16 / (int)sizeof(T); ++k) m = max(m, abs_bits(spot::to_f32<T>(e[k])));
+  return m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ABSMAX_THREADS)
 absmax_partial_kernel(const T* __restrict__ x, long long n, bool vec,
                       uint32_t* __restrict__ partial) {
+  // the final CTA may be scheduled now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   constexpr int VEC = 16 / sizeof(T);
   uint32_t m = 0;
   const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -69,12 +90,15 @@ absmax_partial_kernel(const T* __restrict__ x, long long n, bool vec,
   if (vec) {
     const long long nv = n / VEC;
     const uint4* xv = reinterpret_cast<const uint4*>(x);
-    for (long long i = tid; i < nv; i += stride) {
-      const uint4 raw = xv[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
+    long long i = tid;
+    for (; i + (ABSMAX_LOADS - 1) * stride < nv; i += ABSMAX_LOADS * stride) {
+      uint4 raw[ABSMAX_LOADS];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) m = max(m, abs_bits(spot::to_f32<T>(e[k])));
+      for (int u = 0; u < ABSMAX_LOADS; ++u) raw[u] = __ldcs(xv + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < ABSMAX_LOADS; ++u) m = max(m, abs_bits16<T>(raw[u]));
     }
+    for (; i < nv; i += stride) m = max(m, abs_bits16<T>(__ldcs(xv + i)));
     done = nv * VEC;
   }
   for (long long i = done + tid; i < n; i += stride)
@@ -83,8 +107,11 @@ absmax_partial_kernel(const T* __restrict__ x, long long n, bool vec,
   if (threadIdx.x == 0) partial[blockIdx.x] = m;
 }
 
+// launched as a programmatic dependent of the partials' grid: scheduled
+// while that grid runs, it waits here until the partials are written
 __global__ void absmax_final_kernel(const uint32_t* __restrict__ partial, int n,
                                     float* __restrict__ out) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   uint32_t m = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) m = max(m, partial[i]);
   m = block_max(m);
@@ -159,7 +186,35 @@ dequantize_kernel(const int8_t* __restrict__ q, long long n, float scale,
 
 int blocks_for(long long n) { return spot::grid_for(n / 8 + 1, THREADS, 132 * 16); }
 
+// absmax's first-pass grid on a large tensor: every CTA resident at once
+template <typename T>
+int absmax_resident_grid() {
+  static const int grid = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, absmax_partial_kernel<T>,
+                                                  ABSMAX_THREADS, 0);
+    return std::min(std::max(sms * per_sm, 1), MAX_PARTIALS);
+  }();
+  return grid;
+}
+
+int absmax_grid(int dtype_code) {
+  switch (dtype_code) {
+    case spot::kF32: return absmax_resident_grid<float>();
+    case spot::kBF16: return absmax_resident_grid<__nv_bfloat16>();
+    case spot::kF16: return absmax_resident_grid<__half>();
+    default: return -1;
+  }
+}
+
 }  // namespace
+
+// The grid absmax's first pass takes on a large tensor of dtype_code (-1
+// for a dtype it does not take); a trip of it reads grid * 1024 threads *
+// 4 loads * 16 bytes.
+extern "C" int spot_absmax_grid(int dtype_code) { return absmax_grid(dtype_code); }
 
 // x: n elements of dtype_code; partial: uint32[n_partial] scratch
 // (n_partial <= 1024); out: float32[1]. Two launches (partials, final).
@@ -167,21 +222,24 @@ extern "C" int spot_absmax(const void* x, long long n, int dtype_code,
                            void* partial, int n_partial, void* out,
                            void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  int grid = spot::grid_for(n / 16 + 1, THREADS, n_partial);
-  if (grid > MAX_PARTIALS) grid = MAX_PARTIALS;
+  const int resident = absmax_grid(dtype_code);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // elements one CTA reads in a trip: at most one trip per CTA on a small x
+  const int per_cta = ABSMAX_THREADS * ABSMAX_LOADS * 16 / (dtype_code == spot::kF32 ? 4 : 2);
+  const int grid = spot::grid_for(n, per_cta, std::min(resident, n_partial));
   const bool vec = spot::aligned(x, 16);
   auto* p = static_cast<uint32_t*>(partial);
   switch (dtype_code) {
     case spot::kF32:
-      absmax_partial_kernel<float><<<grid, THREADS, 0, s>>>(
+      absmax_partial_kernel<float><<<grid, ABSMAX_THREADS, 0, s>>>(
           static_cast<const float*>(x), n, vec, p);
       break;
     case spot::kBF16:
-      absmax_partial_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+      absmax_partial_kernel<__nv_bfloat16><<<grid, ABSMAX_THREADS, 0, s>>>(
           static_cast<const __nv_bfloat16*>(x), n, vec, p);
       break;
     case spot::kF16:
-      absmax_partial_kernel<__half><<<grid, THREADS, 0, s>>>(
+      absmax_partial_kernel<__half><<<grid, ABSMAX_THREADS, 0, s>>>(
           static_cast<const __half*>(x), n, vec, p);
       break;
     default:
@@ -189,7 +247,19 @@ extern "C" int spot_absmax(const void* x, long long n, int dtype_code,
   }
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  absmax_final_kernel<<<1, 1024, 0, s>>>(p, grid, static_cast<float*>(out));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(1024);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, absmax_final_kernel,
+                                           static_cast<const uint32_t*>(p), grid,
+                                           static_cast<float*>(out));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

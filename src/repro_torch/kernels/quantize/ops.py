@@ -19,7 +19,18 @@ from .. import _lib
 from .ref import absmax_ref, dequantize_int8_ref, quantize_with_inv_ref
 
 FLOAT_DTYPES = _lib.FLOAT_DTYPES
-_MAX_PARTIALS = 1024
+_MAX_PARTIALS = 1024                 # MAX_PARTIALS in csrc/quantize.cu
+ABSMAX_THREADS, ABSMAX_LOADS = 1024, 4  # the same names there
+
+
+def absmax_grid(dtype: torch.dtype) -> tuple[int, int]:
+    """(CTAs, elements per trip) of absmax's first pass on a large tensor
+    of ``dtype`` on this card: the resident grid (SMs times the kernel's
+    occupancy, at most 1024) of 1024-thread CTAs, each thread reading
+    four 16-byte loads a trip."""
+    grid = _lib.library().spot_absmax_grid(_lib.DTYPE_CODES[dtype])
+    itemsize = torch.finfo(dtype).bits // 8
+    return grid, grid * ABSMAX_THREADS * ABSMAX_LOADS * 16 // itemsize
 
 
 def absmax(x: torch.Tensor) -> torch.Tensor:
@@ -28,12 +39,14 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return absmax_ref(x).reshape(1)
     _lib.require_cuda(x, "absmax", FLOAT_DTYPES)
-    out = torch.empty(1, dtype=torch.float32, device=x.device)
+    # the result and the per-CTA partials in one allocation (under
+    # deterministic algorithms every allocation is filled: one fill, not two)
+    buf = torch.empty(1 + _MAX_PARTIALS, dtype=torch.int32, device=x.device)
+    out = buf[:1].view(torch.float32)
     if x.numel() == 0:
         return out.zero_()
-    partial = torch.empty(_MAX_PARTIALS, dtype=torch.int32, device=x.device)
     err = _lib.library().spot_absmax(
-        x.data_ptr(), x.numel(), _lib.DTYPE_CODES[x.dtype], partial.data_ptr(),
+        x.data_ptr(), x.numel(), _lib.DTYPE_CODES[x.dtype], buf[1:].data_ptr(),
         _MAX_PARTIALS, out.data_ptr(), _lib.stream_ptr(x.device))
     _lib.check(err, "absmax")
     _lib.LAUNCHES["absmax"] += 1

@@ -26,7 +26,10 @@ from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import fingerprint as fp  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_ref,  # noqa: E402
-                                                  flash_decode)
+                                                  decode_merge,
+                                                  decode_merge_ref,
+                                                  decode_partials,
+                                                  decode_splits, flash_decode)
 from repro_torch.kernels.flash_attention import (VARIANTS,  # noqa: E402
                                                  attention_bwd_ref,
                                                  attention_dkv_ref,
@@ -135,6 +138,42 @@ def test_absmax_propagates_nan(cuda):
     x = payload(torch.float32, 70_000)
     x[12_345] = float("nan")
     assert torch.isnan(qz.absmax(x.to(cuda))).all()
+
+
+def _absmax_edges():
+    """(name, tensor on the CPU) at the first pass's edges: tiny tensors,
+    one element either side of a whole trip of the resident grid, a view
+    off the 16-byte boundary (the scalar path), a NaN in the scalar tail,
+    an all-subnormal tensor."""
+    grid, trip = qz.absmax_grid(torch.float32)
+    _, trip16 = qz.absmax_grid(torch.bfloat16)
+    assert grid >= 132 and trip == grid * 1024 * 4 * 4 and trip16 == 2 * trip
+    big = payload(torch.float32, trip + 1)
+    tail = payload(torch.float32, trip + 3)
+    tail[-2] = float("nan")
+    return [("n1", payload(torch.float32, 1)), ("n3", payload(torch.float32, 3)),
+            ("trip_minus_1", big[:trip - 1]), ("trip", big[:trip]),
+            ("trip_plus_1", big), ("bf16_trip_plus_1", payload(torch.bfloat16, trip16 + 1)),
+            ("misaligned", big[1:]), ("nan_in_tail", tail),
+            ("subnormal", torch.tensor([1e-40, -3e-39, 2e-45] * 1000))]
+
+
+def test_absmax_at_the_grid_and_unroll_edges(cuda):
+    for name, x in _absmax_edges():
+        xc = x.to(cuda)
+        if name == "misaligned":
+            xc = xc.new_empty(x.numel() + 1)[1:].copy_(xc)
+            assert xc.data_ptr() % 16
+        got = qz.absmax(xc)[0]
+        if name == "nan_in_tail":
+            assert torch.isnan(got), name
+            continue
+        assert same_bits(got, qz.absmax_ref(x)), name
+    x = torch.tensor([1e-40, -3e-39, 2e-45] * 1000)
+    q, scale = qz.quantize_int8(x.to(cuda))
+    hq, hscale = ser.quantize(x.numpy(), "int8", "float32")
+    assert scale == hscale and scale != 1.0     # no flush of subnormals
+    assert np.array_equal(q.cpu().numpy(), hq)
 
 
 def test_wrappers_refuse_bad_operands(cuda):
@@ -288,6 +327,25 @@ DECODE_GPU_CASES = [
     (2, 32, 32, 96, 333, 1, torch.float32),
     (2, 32, 32, 96, 333, 170, torch.float32),
     (2, 32, 32, 96, 333, 333, torch.float32),
+    # the split kernel's edges at the served shapes (batch 4): valid_len
+    # at 1, tile - 1, tile, tile + 1 (32 keys at hd 256, 64 at hd 96); at
+    # gemma3's and recurrentgemma's shapes every tile is a split up to
+    # 2112 rows, past that splits of two tiles: 2175 / 2176 / 2177 leave
+    # the last split one key short, full, and one key; at phi3-mini's,
+    # 129 (splits of 128 keys) leaves one key in the last split, 2047 /
+    # 2048 (splits of 1024) one short and full; S a multiple of no tile
+    *[(4, 4, 1, 256, 2048, vl, torch.bfloat16) for vl in (1, 31, 32, 33, 2000)],
+    *[(4, 4, 1, 256, 2048, vl, torch.float32) for vl in (33, 2000)],
+    *[(4, 4, 1, 256, 2200, vl, torch.bfloat16) for vl in (2175, 2176, 2177)],
+    (4, 4, 1, 256, 2200, 2177, torch.float32),
+    (4, 4, 1, 256, 2001, 2001, torch.bfloat16),
+    *[(4, 10, 1, 256, 2048, vl, torch.bfloat16) for vl in (1, 33, 1985, 2048)],
+    (4, 10, 1, 256, 2048, 1985, torch.float32),
+    (4, 10, 1, 256, 2200, 2177, torch.bfloat16),
+    *[(4, 32, 32, 96, 2048, vl, torch.bfloat16)
+      for vl in (1, 63, 64, 65, 129, 2047, 2048)],
+    *[(4, 32, 32, 96, 2048, vl, torch.float32) for vl in (65, 129, 2047)],
+    (4, 32, 32, 96, 2001, 2001, torch.float32),
 ]
 
 
@@ -303,6 +361,61 @@ def test_flash_decode_kernel_matches_plain(cuda, B, H, KV, hd, S, vl, dtype):
     atol, rtol = ATT_TOL[dtype]
     torch.testing.assert_close(o.float(), decode_attention_ref(q, k, v, vl).float(),
                                atol=atol, rtol=rtol)
+
+
+def test_flash_decode_repeats_bit_for_bit(cuda):
+    """The split count depends on the shapes and valid_len alone and the
+    merge sums the splits in order: two calls give the same bits."""
+    for B, H, KV, hd, S, vl, dtype in ((4, 4, 1, 256, 2048, 2000, torch.bfloat16),
+                                       (4, 10, 1, 256, 2048, 1985, torch.bfloat16),
+                                       (4, 32, 32, 96, 2048, 2048, torch.bfloat16),
+                                       (4, 32, 32, 96, 2048, 1000, torch.float32)):
+        q = randn((B, H, hd), dtype, 1, cuda)
+        k, v = (randn((B, S, KV, hd), dtype, s, cuda) for s in (2, 3))
+        assert same_bits(flash_decode(q, k, v, vl), flash_decode(q, k, v, vl))
+
+
+def test_flash_decode_counts_its_split_and_merge_launches(cuda):
+    q = randn((4, 4, 256), torch.bfloat16, 1, cuda)
+    k, v = (randn((4, 512, 1, 256), torch.bfloat16, s, cuda) for s in (2, 3))
+    before = dict(_lib.LAUNCHES)
+    flash_decode(q, k, v, 500)
+    assert _lib.LAUNCHES["decode_attention"] == before["decode_attention"] + 1
+    assert (_lib.LAUNCHES["decode_attention_merge"]
+            == before["decode_attention_merge"] + 1)
+    ws = decode_partials(q, k, v, 500)
+    assert _lib.LAUNCHES["decode_attention"] == before["decode_attention"] + 2
+    assert (_lib.LAUNCHES["decode_attention_merge"]
+            == before["decode_attention_merge"] + 1)
+    decode_merge(ws, torch.bfloat16)
+    assert (_lib.LAUNCHES["decode_attention_merge"]
+            == before["decode_attention_merge"] + 2)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S,vl", [(4, 4, 1, 256, 2048, 2000),
+                                             (4, 10, 1, 256, 2048, 1985),
+                                             (4, 32, 32, 96, 2048, 2048),
+                                             (2, 8, 2, 128, 333, 257)])
+def test_decode_merge_kernel_matches_plain(cuda, B, H, KV, hd, S, vl):
+    """The merge kernel alone, on the split kernel's partials, against
+    decode_merge_ref: the same sums in the same order, to 2e-5 in float32
+    and one bf16 ulp (+ 2e-5) in bfloat16."""
+    q = randn((B, H, hd), torch.bfloat16, 1, cuda)
+    k, v = (randn((B, S, KV, hd), torch.bfloat16, s, cuda) for s in (2, 3))
+    ws = decode_partials(q, k, v, vl)
+    assert ws.shape == (B, H, decode_splits(B, KV, hd, vl)[0], hd + 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = ATT_TOL[dtype]
+        torch.testing.assert_close(decode_merge(ws, dtype).float(),
+                                   decode_merge_ref(ws, dtype).float(),
+                                   atol=atol, rtol=rtol)
+
+
+def test_flash_decode_refuses_a_group_over_sixteen_heads(cuda):
+    q = torch.zeros(1, 17, 64, device=cuda)
+    k = torch.zeros(1, 8, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        flash_decode(q, k, k, 8)
 
 
 @pytest.mark.parametrize("pos", [0, 510, 511, 512, 3 * 512 + 5])
