@@ -11,17 +11,20 @@ gemma3-1b's cut to one period, trains gemma3-1b at its full published
 config, and serves gemma3-1b, recurrentgemma-2b, phi3-mini and
 falcon-mamba-7b at their full published configs, all with seeded weights:
 
-  kernels         fingerprint / absmax / quantize / dequantize vs plain;
-                  flash-attention forward, flash decode, the selective scan
-                  and the RG-LRU scan vs plain at the serving shapes; the
-                  flash-attention backward (dkv, dq) at the training shapes.
+  kernels         fingerprint (both launches) / absmax / quantize /
+                  dequantize vs plain; flash-attention forward, flash
+                  decode, the selective scan (bf16 and float32, a row
+                  each) and the RG-LRU scan vs plain at the serving shapes;
+                  the flash-attention backward (dkv, dq) at the training
+                  shapes.
                   The forward, the dkv and the dq pass have two variants,
                   chosen by dtype: bfloat16 on the tensor cores (wgmma);
                   float32 forward on the CUDA cores, float32 dkv and dq on
                   the tensor cores in 3xTF32 (mma.sync); each is held,
                   timed (with its TFLOP/s) and listed as a row of its own
   delta           delta saves of the full-width state at 1% and 5% block
-                  churn: exact d2h accounting, bit-identical restore
+                  churn: exact d2h accounting, bit-identical restore; one
+                  save's fingerprint launches under the profiler
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
                   against an uninterrupted run
   spot_loop_int8  the same on a quantize_moments store: the urgent save
@@ -101,6 +104,9 @@ MODEL_GRAD_TOL = 1e-4          # card vs host gradients, of each leaf's max
 MODEL_LOSS_TOL = 1e-5          # card vs host loss, relative
 SCAN_TOL = 1e-4                # selective scan vs plain: the reference's
 SFU_PER_SM_CLOCK = 16          # exponentials per SM per clock (H100)
+FP32_PER_SM_CLOCK = 128        # float32 instructions per SM per clock
+INT32_OPS_PER_SM_CLOCK = 64    # 32-bit integer multiply, shift and logic
+                               # per SM per clock (H100)
 H100_SMS = 132
 ATT_TOL = 2e-5                 # attention kernels vs plain in float32, abs;
                                # their float32 log-sum-exp, abs and rel
@@ -221,6 +227,88 @@ def max_abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def fingerprint_kernels(embed, cases) -> dict:
+    """The fingerprint's two launches against their plain versions, bit for
+    bit, on ``cases`` at 1 MiB blocks; the whole call (both launches) and
+    the final launch alone timed on phi3-mini's embed, in device time from
+    a CUDA graph (in turns, three each, the median kept) and eagerly."""
+    import torch
+    from repro_torch.kernels.fingerprint import (SLICE_BYTES,
+                                                 fingerprint_blocks,
+                                                 fingerprint_blocks_ref,
+                                                 fingerprint_diff,
+                                                 fingerprint_diff_ref,
+                                                 fingerprint_final,
+                                                 fingerprint_final_ref,
+                                                 fingerprint_grid,
+                                                 fingerprint_partials,
+                                                 fingerprint_partials_ref)
+    for x in cases:
+        what = f"{tuple(x.shape)} {x.dtype}"
+        parts = fingerprint_partials(x, block_bytes=CHUNK)
+        need(same_bits(parts, fingerprint_partials_ref(x, CHUNK, SLICE_BYTES)),
+             f"fingerprint partials mismatch {what}")
+        fp = fingerprint_blocks(x, block_bytes=CHUNK)
+        need(same_bits(fp, fingerprint_blocks_ref(x, CHUNK)),
+             f"fingerprint mismatch {what}")
+        old = fp.clone()
+        old[::3] ^= 1
+        fp2, diff = fingerprint_diff(x, old, block_bytes=CHUNK)
+        fpr, diffr = fingerprint_diff_ref(x, old, CHUNK)
+        need(same_bits(fp2, fpr) and torch.equal(diff, diffr),
+             f"fingerprint_diff mismatch {what}")
+        fp3, diff3 = fingerprint_final(parts, old)
+        need(same_bits(fp3, fpr) and torch.equal(diff3, diffr),
+             f"fingerprint final mismatch {what}")
+    old = fingerprint_blocks(embed, block_bytes=CHUNK)
+    old[::2] ^= 1
+    nb = old.numel()
+    parts = fingerprint_partials(embed, block_bytes=CHUNK)
+    grid = fingerprint_grid()
+    print(json.dumps({"fingerprint_grid": {
+        "ctas": grid, "threads": 1024, "slice_bytes": SLICE_BYTES,
+        "blocks": nb, "slices": parts.numel(),
+        "slices_per_cta": parts.numel() / grid,
+        "most_slices_of_a_cta": -(-parts.numel() // grid)}}), flush=True)
+    call = functools.partial(fingerprint_diff, embed, old, block_bytes=CHUNK)
+    final = functools.partial(fingerprint_final, parts, old)
+    turns = [(graph_ms([call], replays=20), graph_ms([final], replays=20))
+             for _ in range(3)]
+    fpr, diffr = fingerprint_diff_ref(embed, old, CHUNK)
+    fp, diff = call()
+    ff, fdiff = final()
+    need(same_bits(ff, fpr) and torch.equal(fdiff, diffr),
+         "fingerprint final mismatch on the embed")
+    # the integer operations over the card's 32-bit integer rate at its clock
+    clock = sm_clock_mhz()
+    int_rate = H100_SMS * INT32_OPS_PER_SM_CLOCK * clock * 1e6
+    return {
+        "fingerprint": dict(
+            ms=statistics.median(t[0] for t in turns), eager_ms=time_ms(call),
+            plain_ms=time_ms(lambda: fingerprint_diff_ref(embed, old, CHUNK),
+                             reps=5),
+            library_ms=None, max_abs_err=max(
+                max_abs_err(fp.to(torch.int64), fpr.to(torch.int64)),
+                float((diff != diffr).sum())),
+            # bytes: the tensor once, old digests in, digests + diff out;
+            # operations: 6 integer ops per word (one word per bf16 element):
+            # pos*C1, xor, *C2, >>15, xor, add
+            bound=bound(embed.numel() * 2 + nb * 9, embed.numel() * 6, int_rate),
+            grid=grid, slice_bytes=SLICE_BYTES, sm_clock_mhz=clock,
+            shape=list(embed.shape), dtype="bfloat16"),
+        "fingerprint_final": dict(
+            ms=statistics.median(t[1] for t in turns), eager_ms=time_ms(final),
+            plain_ms=time_ms(lambda: fingerprint_final_ref(parts, old)),
+            library_ms=None, max_abs_err=max(
+                max_abs_err(ff.to(torch.int64), fpr.to(torch.int64)),
+                float((fdiff != diffr).sum())),
+            # bytes: the partials and old digests in, digests + diff out;
+            # operations: one add per partial, fmix32's 7 and the compare
+            bound=bound(parts.numel() * 4 + nb * 9, parts.numel() + nb * 8,
+                        int_rate),
+            shape=list(parts.shape), dtype="int32")}
+
+
 # ---------------------------------------------------------------------------
 # phase: kernels
 # ---------------------------------------------------------------------------
@@ -231,10 +319,6 @@ def phase_kernels(cfg, dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.checkpoint import serialize as ser
-    from repro_torch.kernels.fingerprint import (fingerprint_blocks,
-                                                 fingerprint_blocks_ref,
-                                                 fingerprint_diff,
-                                                 fingerprint_diff_ref)
     from repro_torch.kernels.quantize import (absmax, absmax_grid, absmax_ref,
                                               dequantize_int8,
                                               dequantize_int8_ref,
@@ -257,29 +341,7 @@ def phase_kernels(cfg, dev) -> dict:
              torch.randint(0, 1 << 40, (300_001,), generator=g, device=dev),
              torch.randint(0, 1 << 30, (5,), dtype=torch.int32, generator=g,
                            device=dev)]
-    for x in cases:
-        fp = fingerprint_blocks(x, block_bytes=CHUNK)
-        need(same_bits(fp, fingerprint_blocks_ref(x, CHUNK)),
-             f"fingerprint mismatch {tuple(x.shape)} {x.dtype}")
-        old = fp.clone()
-        old[::3] ^= 1
-        fp2, diff = fingerprint_diff(x, old, block_bytes=CHUNK)
-        fpr, diffr = fingerprint_diff_ref(x, old, CHUNK)
-        need(same_bits(fp2, fpr) and torch.equal(diff, diffr),
-             f"fingerprint_diff mismatch {tuple(x.shape)} {x.dtype}")
-    old = fingerprint_blocks(embed, block_bytes=CHUNK)
-    nb = old.numel()
-    out["fingerprint"] = dict(
-        ms=time_ms(lambda: fingerprint_diff(embed, old, block_bytes=CHUNK)),
-        plain_ms=time_ms(lambda: fingerprint_diff_ref(embed, old, CHUNK), reps=5),
-        library_ms=None, max_abs_err=max_abs_err(
-            fingerprint_blocks(embed, block_bytes=CHUNK).to(torch.int64),
-            fingerprint_blocks_ref(embed, CHUNK).to(torch.int64)),
-        # bytes: the tensor once, old digests in, digests + diff out;
-        # operations: 6 integer ops per word (one word per bf16 element):
-        # pos*C1, xor, *C2, >>15, xor, add
-        bound=bound(embed.numel() * 2 + nb * 9, embed.numel() * 6),
-        shape=list(embed.shape), dtype="bfloat16")
+    out.update(fingerprint_kernels(embed, cases))
 
     # absmax: moment (f32), embed (bf16), ragged, a whole trip of the
     # resident grid and one element either side, a misaligned view, NaN
@@ -831,10 +893,11 @@ def sm_clock_mhz() -> float:
 
 def scan_kernel(dev) -> dict:
     """The selective scan against its plain version at falcon-mamba-7b's
-    prefill shape (bf16, and float32 on the same values widened)."""
+    prefill shape, in bf16 and in float32 on the same values widened, each
+    instance timed as a row of its own (the serving phases run both)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan import scan_layout, ssm_scan, ssm_scan_ref
 
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -842,12 +905,15 @@ def scan_kernel(dev) -> dict:
     u = torch.randn((B, S, DI), generator=g, device=dev).to(torch.bfloat16)
     dt = F.softplus(torch.randn((B, S, DI), generator=g, device=dev) - 2.0
                     ).to(torch.bfloat16)
-    # the model's A = -exp(A_log) = -(1..N) and D = 1; B, C in the model dtype
+    # the model's A = -exp(A_log) = -(1..N) and D = 1; B, C in the model
+    # dtype, read in place from x_proj's output as the model reads them
     A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(DI, N)
     A = A.contiguous()
     D = torch.ones(DI, device=dev)
-    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev).to(torch.bfloat16)
-              for _ in range(2))
+    dt_rank = 256                     # falcon-mamba-7b's x_proj: (256, 16, 16)
+    proj = torch.randn((B, S, dt_rank + 2 * N), generator=g, device=dev
+                       ).to(torch.bfloat16)
+    Bm, Cm = proj[..., dt_rank:dt_rank + N], proj[..., dt_rank + N:]
     args = (u, dt, A, Bm, Cm, D)
     y, h = ssm_scan(*args)
     yr, hr = ssm_scan_ref(*args)
@@ -857,27 +923,47 @@ def scan_kernel(dev) -> dict:
     h_err = max_abs_err(h, hr)
     need(h_err <= SCAN_TOL * max(1.0, float(hr.abs().max())),
          f"ssm_scan h_last: max err {h_err}")
-    a32 = tuple(t.float() for t in args)
+    y2, h2 = ssm_scan(*args)
+    need(same_bits(y, y2) and same_bits(h, h2),
+         "ssm_scan: two calls gave different bits")
+    a32 = (u.float(), dt.float(), A, proj.float()[..., dt_rank:dt_rank + N],
+           proj.float()[..., dt_rank + N:], D)
     y32, h32 = ssm_scan(*a32)
     yr32, hr32 = ssm_scan_ref(*a32)
     f32_err = max(max_abs_err(y32, yr32), max_abs_err(h32, hr32))
     need(f32_err <= SCAN_TOL, f"ssm_scan float32: max err {f32_err}")
-    del a32, y32, h32, yr32, hr32, yr, hr
+    del y32, h32, yr32, hr32, yr, hr, y2, h2
     clock = sm_clock_mhz()
     exps = B * S * DI * N
-    nbytes = (u.numel() * 2 * 3 + (Bm.numel() + Cm.numel()) * 4
-              + (A.numel() + D.numel() + h.numel()) * 4)  # u, dt, y; B, C f32
-    out = {"ssm_scan": dict(
-        ms=time_ms(lambda: ssm_scan(*args)),
-        plain_ms=time_ms(lambda: ssm_scan_ref(*args), reps=2, runs=3,
-                         warmup=1),
-        library_ms=None, max_abs_err=err, h_last_max_abs_err=h_err,
-        f32_max_abs_err=f32_err,
-        # exponentials over the special-function units at the card's clock
-        bound=bound(nbytes, exps, H100_SMS * SFU_PER_SM_CLOCK * clock * 1e6),
-        sm_clock_mhz=clock, tol=SCAN_TOL, bf16_rtol=BF16_RTOL,
-        shape=[B, S, DI, N], dtype="bfloat16")}
-    del u, dt, Bm, Cm, y, h, args
+    layouts = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        lay = scan_layout(DI, dtype)
+        ctas = lay["ctas_per_row"] * B
+        lay.update(ctas=ctas, resident_warps_per_sm=min(
+            lay["ctas_per_sm"], -(-ctas // H100_SMS)) * lay["threads"] // 32)
+        layouts[name] = lay
+    print(json.dumps({"ssm_scan_layout": layouts}), flush=True)
+    out = {}
+    for name, a, esize in (("ssm_scan_bf16", args, 2), ("ssm_scan_f32", a32, 4)):
+        # u, dt and y; B and C; A, D and h_last
+        nbytes = (u.numel() * esize * 3 + B * S * N * 2 * esize
+                  + (A.numel() + D.numel() + h.numel()) * 4)
+        out[name] = dict(
+            ms=time_ms(lambda: ssm_scan(*a)),
+            plain_ms=time_ms(lambda: ssm_scan_ref(*a), reps=2, runs=3, warmup=1),
+            library_ms=None,
+            max_abs_err=err if name == "ssm_scan_bf16" else f32_err,
+            h_last_max_abs_err=h_err if name == "ssm_scan_bf16" else f32_err,
+            # exponentials over the special-function units at the card's
+            # clock; beside it the float32 pipe's floor: 5 instructions a
+            # state and step (dt * A, two products, a sum, y's multiply-add)
+            bound=bound(nbytes, exps, H100_SMS * SFU_PER_SM_CLOCK * clock * 1e6),
+            fp32_pipe_ms=exps * 5 / (H100_SMS * FP32_PER_SM_CLOCK * clock * 1e6) * 1e3,
+            layout=layouts[name.split("_")[-1]],
+            sm_clock_mhz=clock, tol=SCAN_TOL,
+            bf16_rtol=BF16_RTOL if name == "ssm_scan_bf16" else None,
+            shape=[B, S, DI, N], dtype="bfloat16" if esize == 2 else "float32")
+    del u, dt, Bm, Cm, y, h, args, a32, proj
     torch.cuda.empty_cache()
     return out
 
@@ -980,6 +1066,19 @@ def phase_delta(cfg, dev, workdir) -> dict:
             "d2h_frac": snap.d2h_bytes / state_bytes,
             "extract_stall_s": stall, "write_s": time.perf_counter() - t1,
             "new_bytes": info.new_bytes}
+    # the device time of one save's fingerprints: every tracked leaf's
+    # fingerprint_diff, as a save launches them, under the profiler
+    from repro_torch.kernels.fingerprint import (fingerprint_blocks,
+                                                 fingerprint_diff)
+    tracked = [(t, fingerprint_blocks(t, block_bytes=CHUNK))
+               for n, t in ser.flatten_state(state).items()
+               if tracker._codec_for(n, t) is not None]
+    res["fingerprint_save"] = dict(
+        _profile(lambda: [fingerprint_diff(t, old, block_bytes=CHUNK)
+                          for t, old in tracked], 3),
+        leaves=len(tracked), bytes=sum(t.numel() * t.element_size()
+                                       for t, _ in tracked))
+    del tracked
     need(res["churn_0.05"]["d2h_frac"] <= 0.35,
          f"5% churn moved {res['churn_0.05']['d2h_frac']:.1%} of the state")
     t0 = time.perf_counter()
@@ -1090,6 +1189,8 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
          f"final loss {ev.final_loss!r} != uninterrupted {base.final_loss!r}")
     need(launches[name]["fingerprint"] > 0,
          "periodic delta saves launched no fingerprint kernel")
+    need(launches[name]["fingerprint_final"] == launches[name]["fingerprint"],
+         "a fingerprint call's second launch is missing")
     for k in ("flash_attention_fwd", "flash_attention_dkv",
               "flash_attention_dq"):
         need(launches[name][k] > 0, f"the train steps launched no {k} kernel")
@@ -1118,7 +1219,8 @@ def phase_spot_loop_int8(cfg, dev, workdir, steps, launches) -> dict:
          "the int8 loop did not complete through an eviction and a restore")
     need(rep.lost_steps == 0, f"the int8 loop lost {rep.lost_steps} steps")
     need(math.isfinite(rep.final_loss), "non-finite loss in the int8 loop")
-    for k in ("absmax", "quantize", "dequantize", "fingerprint"):
+    for k in ("absmax", "quantize", "dequantize", "fingerprint",
+              "fingerprint_final"):
         need(launches["spot_loop_int8"][k] > 0,
              f"the int8 loop launched no {k} kernel")
     # the replacement restored the termination checkpoint: its moments must
@@ -1374,7 +1476,8 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
            "launches": counted,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     want = {"flash_attention_fwd": n_attn, "rglru_scan": n_rec,
-            "ssm_scan": n_mamba, "decode_attention": n_attn * (NEW - 1),
+            "ssm_scan": n_mamba, "ssm_scan_bf16": n_mamba,
+            "decode_attention": n_attn * (NEW - 1),
             "decode_attention_merge": n_attn * (NEW - 1)}
     for name, n in want.items():
         need(counted[name] == n,
@@ -1439,6 +1542,9 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
         params32, cfg32, make_prefill(cfg32, cache_len=CACHE_LEN, device=dev),
         make_decode_step(cfg32, device=dev), prompt, keep_logits=True)
     launches[f"serve_{arch}_f32"] = c32 = dict(_lib.LAUNCHES)
+    need(c32["ssm_scan_f32"] == n_mamba,
+         f"{arch} float32: {c32['ssm_scan_f32']} float32 scan launches, "
+         f"expected {n_mamba}")
     need(c32["flash_attention_fwd_cudacore"] == n_attn,
          f"{arch} float32: {c32['flash_attention_fwd_cudacore']} CUDA-core "
          f"forward launches, expected {n_attn}")
@@ -1487,13 +1593,20 @@ def ptxas_summary(report: dict) -> dict:
         dtype = "bf16" if "__nv_bfloat16" in mangled or "wgmma" in names[0] \
             else "f16" if "6__half" in mangled else "f32"
         ints = re.findall(r"Li(\d+)E", mangled)
-        out[f"{names[0]}<{','.join([dtype, *ints])}>"] = info
+        key = f"{names[0]}<{','.join([dtype, *ints])}>"
+        while key in out:      # instances told apart by a type argument only
+            key += "'"
+        out[key] = info
     return out
 
 
 KERNELS = {
     "fingerprint": ("src/repro_torch/kernels/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint/fingerprint.py:30"),
+    # the fingerprint's second launch: each block's slice sums to its digest
+    # and diff, the reference kernel's finalize of its block sum
+    "fingerprint_final": ("src/repro_torch/kernels/csrc/fingerprint.cu",
+                          "src/repro/kernels/fingerprint/fingerprint.py:30"),
     "absmax": ("src/repro_torch/kernels/csrc/quantize.cu",
                "src/repro/kernels/quantize/quantize.py:38"),
     "quantize": ("src/repro_torch/kernels/csrc/quantize.cu",
@@ -1528,8 +1641,12 @@ KERNELS = {
     "decode_attention_merge": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:30"),
-    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
-                 "src/repro/kernels/ssm_scan/ssm_scan.py:36"),
+    # the scan's two instances: bfloat16 (the serving path) and float32
+    # (the teacher-forced copy)
+    "ssm_scan_bf16": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                      "src/repro/kernels/ssm_scan/ssm_scan.py:36"),
+    "ssm_scan_f32": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/ssm_scan.py:36"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/rglru_scan.py:31"),
 }

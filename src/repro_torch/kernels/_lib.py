@@ -38,13 +38,19 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"fingerprint": 0, "absmax": 0, "quantize": 0,
+LAUNCHES: dict[str, int] = {"fingerprint": 0,
+                            # the fingerprint's second launch: each
+                            # block's slice sums to its digest and diff
+                            "fingerprint_final": 0, "absmax": 0, "quantize": 0,
                             "dequantize": 0, "flash_attention_fwd": 0,
                             "flash_attention_dkv": 0, "flash_attention_dq": 0,
                             "decode_attention": 0,
                             # flash decode's second launch: the merge of
                             # the split pass's partials
                             "decode_attention_merge": 0, "ssm_scan": 0,
+                            # the scan's two instances (each launch counts
+                            # under ssm_scan too)
+                            "ssm_scan_bf16": 0, "ssm_scan_f32": 0,
                             "rglru_scan": 0,
                             # the two variants of the forward, the dkv and
                             # the dq pass (each launch counts under its pass
@@ -67,8 +73,12 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 _SIGNATURES = {
-    # (x, nbytes, itemsize, block_bytes, n_blocks, out, old|NULL, diff|NULL, stream)
-    "spot_fingerprint": (_P, _I64, _I32, _I64, _I64, _P, _P, _P, _P),
+    # (x, nbytes, itemsize, block_bytes, slice_bytes, n_blocks, partial, stream)
+    "spot_fingerprint_partials": (_P, _I64, _I32, _I64, _I64, _I64, _P, _P),
+    # (partial, n_blocks, slices_per_block, out, old|NULL, diff|NULL, stream)
+    "spot_fingerprint_final": (_P, _I64, _I64, _P, _P, _P, _P),
+    # () -> the partial kernel's resident grid
+    "spot_fingerprint_grid": (),
     # (x, n, dtype_code, partial, n_partial, out, stream)
     "spot_absmax": (_P, _I64, _I32, _P, _I32, _P, _P),
     # (dtype_code) -> absmax's first-pass grid on a large tensor
@@ -105,13 +115,17 @@ _SIGNATURES = {
     "spot_decode_merge": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P),
     # (a, b, h, h_last, B, S, W, dtype_code, stream)
     "spot_rglru_scan": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
-    # (u, dt, A, B, C, D, y, h_last, B, S, DI, N, dtype_code, stream)
+    # (u, dt, A, B, C, D, y, h_last, B, S, DI, N, ld_bc, dtype_code,
+    #  bc_dtype_code, stream)
     "spot_ssm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                      _I32, _P),
+                      _I64, _I32, _I32, _P),
+    # (DI, dtype_code, int[5] out) -> the scan's launch layout
+    "spot_ssm_scan_layout": (_I32, _I32, _P),
 }
 
 # element-type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FLOAT_DTYPES = tuple(DTYPE_CODES)            # the checkpoint kernels
 # the model kernels' template instances: the dtypes and head dimensions the
 # models serve and train in, and no others (phi3-mini trains and serves at

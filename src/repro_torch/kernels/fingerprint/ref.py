@@ -97,6 +97,51 @@ def fingerprint_blocks_ref(x: torch.Tensor, block_bytes: int) -> torch.Tensor:
     return to_int32_bits(fmix32(h.sum(dim=1) & _M32))
 
 
+def slices_per_block(block_bytes: int, slice_bytes: int) -> int:
+    """Slices a block is cut into by the CUDA kernel's first launch (a block
+    smaller than a slice is one slice)."""
+    return -(-int(block_bytes) // int(slice_bytes))
+
+
+def fingerprint_partials_ref(x: torch.Tensor, block_bytes: int,
+                             slice_bytes: int) -> torch.Tensor:
+    """The first launch's output: int32 (n_blocks, slices_per_block), the
+    wrapping uint32 sum of the mixed words of each ``slice_bytes`` slice of
+    each block (bytes [s * slice_bytes, min((s + 1) * slice_bytes,
+    block_bytes)) of the block), each word at its position in the block, the
+    tail block's zero padding included."""
+    if block_bytes % 4 or block_bytes < 4 or slice_bytes % 16 or slice_bytes < 16:
+        raise ValueError(f"block_bytes {block_bytes} must be a multiple of 4, "
+                         f"slice_bytes {slice_bytes} of 16")
+    it = x.element_size()
+    nbytes = x.numel() * it
+    n_blocks = n_blocks_of(nbytes, block_bytes)
+    spb = slices_per_block(block_bytes, slice_bytes)
+    if nbytes == 0:
+        return torch.zeros((0, spb), dtype=torch.int32, device=x.device)
+    w = words_of(x)
+    wpb = words_per_block(block_bytes, it)
+    pad = n_blocks * wpb - w.numel()
+    if pad:
+        w = torch.cat([w, w.new_zeros(pad)])
+    h = mix_words(w.reshape(n_blocks, wpb),
+                  torch.arange(wpb, dtype=torch.int64, device=x.device))
+    # past the block's last word nothing is added: pad with zeros, unmixed
+    wps = slice_bytes // word_bytes(it) if spb > 1 else wpb
+    h = torch.cat([h, h.new_zeros((n_blocks, spb * wps - wpb))], dim=1)
+    return to_int32_bits(h.reshape(n_blocks, spb, wps).sum(dim=2) & _M32)
+
+
+def fingerprint_final_ref(partials: torch.Tensor, old_fp: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The second launch's output from int32 (n_blocks, slices) partials:
+    (digests fmix32(sum of a block's slices mod 2^32), per-block changed mask
+    against ``old_fp``, or None without it)."""
+    s = (partials.to(torch.int64) & _M32).sum(dim=1) & _M32
+    fp = to_int32_bits(fmix32(s))
+    return fp, (fp != old_fp if old_fp is not None else None)
+
+
 def fingerprint_diff_ref(x: torch.Tensor, old_fp: torch.Tensor,
                          block_bytes: int) -> tuple[torch.Tensor, torch.Tensor]:
     fp = fingerprint_blocks_ref(x, block_bytes)

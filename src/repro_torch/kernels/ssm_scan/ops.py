@@ -11,6 +11,8 @@ raises; there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _lib
@@ -21,7 +23,10 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """u, delta: (B,S,DI) in one dtype; A: (DI,N), D: (DI,) float32; B, C:
-    (B,S,N). Returns (y (B,S,DI) in u's dtype, h_last (B,DI,N) float32)."""
+    (B,S,N) of any float dtype (the kernel reads float32 or u's dtype as
+    they are, views into a projection's output included, and widens any
+    other to float32 first). Returns (y (B,S,DI) in u's dtype, h_last
+    (B,DI,N) float32)."""
     _lib.refuse_grad("ssm_scan", u, delta, A, B, C, D)
     Bb, S, DI = u.shape
     N = A.shape[1]
@@ -38,21 +43,43 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     return _launch(u, delta, A, B, C, D)
 
 
+def _row_stride(t: torch.Tensor) -> int | None:
+    """Values between consecutive steps of a (B,S,N) operand whose (b, t)
+    rows lie one stride apart with unit-stride states (a view into the
+    projection's output is one), else None."""
+    Bb, S, N = t.shape
+    if N > 1 and t.stride(2) != 1:
+        return None
+    ld = t.stride(1) if S > 1 else (t.stride(0) if Bb > 1 else N)
+    if Bb > 1 and t.stride(0) != S * ld:
+        return None
+    return ld if ld >= N else None
+
+
 def _launch(u, delta, A, B, C, D):
     u, delta = u.contiguous(), delta.contiguous()
     _lib.require_cuda(u, "ssm_scan u", _lib.SERVING_DTYPES)
     _lib.require_cuda(delta, "ssm_scan delta", _lib.SERVING_DTYPES)
-    # B_t and C_t are read by every channel: widened once here (B*S*N
-    # values, a small fraction of u's)
-    B, C = B.to(torch.float32).contiguous(), C.to(torch.float32).contiguous()
-    for t, name in ((A, "A"), (B, "B"), (C, "C"), (D, "D")):
-        _lib.require_cuda(t, f"ssm_scan {name}", (torch.float32,))
     A, D = A.contiguous(), D.contiguous()
+    for t, name in ((A, "A"), (D, "D")):
+        _lib.require_cuda(t, f"ssm_scan {name}", (torch.float32,))
     Bb, S, DI = u.shape
     N = A.shape[1]
     if N != _lib.SSM_STATES:
         raise ValueError(f"ssm_scan: d_state {N} is not the built "
                          f"{_lib.SSM_STATES}")
+    # B_t and C_t are read in their own dtype (float32 or u's) and in place
+    # where their steps lie one stride apart; otherwise one copy each
+    if B.dtype != C.dtype or B.dtype not in (torch.float32, u.dtype):
+        B, C = B.to(torch.float32), C.to(torch.float32)
+    ld = _row_stride(B)
+    if ld is None or ld != _row_stride(C):
+        B, C = B.contiguous(), C.contiguous()
+        ld = N
+    for t, name in ((B, "B"), (C, "C")):
+        if t.device.type != "cuda":
+            raise ValueError(f"ssm_scan {name}: expected a CUDA tensor, got "
+                             f"{t.device}")
     y = torch.empty_like(u)
     h_last = torch.zeros((Bb, DI, N), dtype=torch.float32, device=u.device)
     if y.numel() == 0:
@@ -60,10 +87,22 @@ def _launch(u, delta, A, B, C, D):
     err = _lib.library().spot_ssm_scan(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(), Bb, S,
-        DI, N, _lib.DTYPE_CODES[u.dtype], _lib.stream_ptr(u.device))
+        DI, N, ld, _lib.DTYPE_CODES[u.dtype], _lib.DTYPE_CODES[B.dtype],
+        _lib.stream_ptr(u.device))
     _lib.check(err, "ssm_scan")
     _lib.LAUNCHES["ssm_scan"] += 1
+    _lib.LAUNCHES[f"ssm_scan_{_lib.DTYPE_NAMES[u.dtype]}"] += 1
     return y, h_last
+
+
+def scan_layout(DI: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch layout at DI channels: CTAs a batch row, threads
+    a CTA, lanes a channel, steps a staged chunk, CTAs resident on an SM."""
+    out = (ctypes.c_int * 5)()
+    _lib.check(_lib.library().spot_ssm_scan_layout(
+        DI, _lib.DTYPE_CODES[dtype], out), "ssm_scan_layout")
+    return dict(zip(("ctas_per_row", "threads", "lanes_per_channel",
+                     "steps_per_chunk", "ctas_per_sm"), out))
 
 
 class _SelectiveScan(torch.autograd.Function):

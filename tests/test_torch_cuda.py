@@ -93,15 +93,72 @@ def test_fingerprint_and_diff_match_plain(cuda, dtype, n, misaligned):
     full = payload(dtype, n + skip)
     x, xc = full[skip:], full.to(cuda)[skip:]
     assert (xc.data_ptr() % 16 != 0) == misaligned
-    before = _lib.LAUNCHES["fingerprint"]
+    before = dict(_lib.LAUNCHES)
     got = fp.fingerprint_blocks(xc, block_bytes=CHUNK)
-    assert _lib.LAUNCHES["fingerprint"] == before + 1
+    for name in ("fingerprint", "fingerprint_final"):
+        assert _lib.LAUNCHES[name] == before[name] + 1
     assert same_bits(got, fp.fingerprint_blocks(x.contiguous(), block_bytes=CHUNK))
     old = got.clone()
     old[::2] ^= 1
     new, diff = fp.fingerprint_diff(xc, old, block_bytes=CHUNK)
     want, wdiff = fp.fingerprint_diff(x.contiguous(), old.cpu(), block_bytes=CHUNK)
     assert same_bits(new, want) and torch.equal(diff.cpu(), wdiff)
+
+
+# (dtype, elements, block_bytes): blocks that are not a multiple of the
+# first launch's 64 KiB slice (4 B, 4 KiB, 1 MiB + 16), a tensor of one
+# word, 4096 small blocks, a tensor that ends inside its last slice
+FP_SLICE_CASES = [
+    (torch.float32, 1001, 4),
+    (torch.int8, 4099, 4),
+    (torch.bfloat16, 3 * 2048 + 5, 4096),
+    (torch.int64, 1000, 4096),
+    (torch.bfloat16, (2 * (2 ** 20 + 16) + 40_000) // 2, 2 ** 20 + 16),
+    (torch.int8, 2 ** 20 + 16 + 3, 2 ** 20 + 16),
+    (torch.int32, 1, 2 ** 20),
+    (torch.uint8, 1, 64),
+    (torch.bfloat16, 4096 * 2048, 4096),
+    (torch.float32, (2 ** 20 + 3 * 2 ** 16 + 1000) // 4, 2 ** 20),
+    (torch.bfloat16, (2 ** 20 + 3 * 2 ** 16 + 1002) // 2, 2 ** 20),
+    (torch.int8, 2 ** 20 + 3 * 2 ** 16 + 1001, 2 ** 20),
+]
+
+
+@pytest.mark.parametrize("dtype,n,block", FP_SLICE_CASES)
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+def test_fingerprint_launches_match_their_plain_versions(cuda, dtype, n, block,
+                                                         misaligned):
+    skip = max(1, 4 // torch.empty(0, dtype=dtype).element_size()) if misaligned else 0
+    full = payload(dtype, n + skip, seed=3)
+    x, xc = full[skip:].contiguous(), full.to(cuda)[skip:]
+    assert (xc.data_ptr() % 16 != 0) == misaligned
+    parts = fp.fingerprint_partials(xc, block_bytes=block)
+    assert same_bits(parts, fp.fingerprint_partials_ref(x, block, fp.SLICE_BYTES))
+    old = fp.fingerprint_blocks(x, block_bytes=block)
+    old[1::2] ^= 1
+    got, diff = fp.fingerprint_final(parts, old.to(cuda))
+    want, wdiff = fp.fingerprint_final_ref(parts.cpu(), old)
+    assert same_bits(got, want) and torch.equal(diff.cpu(), wdiff)
+    new, diff = fp.fingerprint_diff(xc, old.to(cuda), block_bytes=block)
+    assert same_bits(new, want) and torch.equal(diff.cpu(), wdiff)
+    assert same_bits(new, fp.fingerprint_blocks_ref(x, block))
+
+
+def test_fingerprint_counts_both_launches_each_call(cuda):
+    x = payload(torch.bfloat16, 3 * 2 ** 19 + 7).to(cuda)
+    before = dict(_lib.LAUNCHES)
+    fp.fingerprint_blocks(x, block_bytes=2 ** 20)
+    old = fp.fingerprint_blocks(x, block_bytes=2 ** 20)
+    fp.fingerprint_diff(x, old, block_bytes=2 ** 20)
+    for name in ("fingerprint", "fingerprint_final"):
+        assert _lib.LAUNCHES[name] == before[name] + 3, name
+    assert fp.fingerprint_grid() >= 132
+    # an empty tensor launches nothing
+    empty = torch.zeros(0, device=cuda)
+    got, diff = fp.fingerprint_diff(empty, torch.zeros(0, dtype=torch.int32,
+                                                       device=cuda), block_bytes=64)
+    assert got.numel() == 0 and diff.numel() == 0
+    assert _lib.LAUNCHES["fingerprint"] == before["fingerprint"] + 3
 
 
 def ties(dtype):
@@ -646,33 +703,36 @@ def test_flash_attention_grads_run_through_the_kernels(cuda):
 
 
 SSM_GPU_CASES = [
-    # B, S, DI, dtype
+    # B, S, DI, dtype; a staged chunk is 64 steps in bf16, 32 in float32,
+    # a CTA 64 channels
     (2, 128, 256, torch.float32),
-    (1, 200, 96, torch.float32),                  # DI a multiple of no block
+    (1, 200, 96, torch.float32),                  # DI a multiple of no CTA
     (4, 1984, 8192, torch.bfloat16),              # falcon-mamba's prefill
-    (2, 65, 128, torch.bfloat16),                 # a partial staging chunk
+    (2, 65, 128, torch.bfloat16),                 # one step past a chunk
+    (1, 1, 256, torch.float32),                   # S = 1
+    (3, 1, 64, torch.bfloat16),
+    (2, 10, 128, torch.bfloat16),                 # shorter than a chunk
+    (2, 33, 96, torch.float32),                   # one step past a chunk
+    (1, 200, 8192, torch.bfloat16),               # B = 1 at falcon-mamba's width
+    (2, 70, 104, torch.bfloat16),                 # a CTA of 40 channels at the edge
+    (1, 50, 100, torch.float32),                  # 36 channels at the edge
+    (1, 40, 72, torch.float32),                   # 8 channels at the edge
+    (2, 40, 36, torch.bfloat16),                  # rows off a 16-byte boundary
 ]
 
 
-def ssm_inputs(B, S, DI, dtype, device, N=16):
+def ssm_inputs(B, S, DI, dtype, device, N=16, a_scale=1.0):
     g = torch.Generator().manual_seed(S * DI + B)
     u = torch.randn((B, S, DI), generator=g).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((B, S, DI), generator=g) - 2.0).to(dtype)
-    A = -torch.exp(torch.randn((DI, N), generator=g) * 0.3)
+    A = -torch.exp(torch.randn((DI, N), generator=g) * 0.3) * a_scale
     Bm = torch.randn((B, S, N), generator=g).to(dtype)
     Cm = torch.randn((B, S, N), generator=g).to(dtype)
     D = torch.full((DI,), 0.5)
     return [t.to(device) for t in (u, dt, A, Bm, Cm, D)]
 
 
-@pytest.mark.parametrize("B,S,DI,dtype", SSM_GPU_CASES)
-def test_ssm_scan_kernel_matches_plain(cuda, B, S, DI, dtype):
-    args = ssm_inputs(B, S, DI, dtype, cuda)
-    before = _lib.LAUNCHES["ssm_scan"]
-    y, h = ssm_scan(*args)
-    torch.cuda.synchronize()
-    assert _lib.LAUNCHES["ssm_scan"] == before + 1
-    yr, hr = ssm_scan_ref(*args)
+def assert_scan_close(y, h, yr, hr, dtype):
     assert y.dtype == dtype and h.dtype == torch.float32
     if dtype == torch.float32:
         torch.testing.assert_close(y, yr, atol=1e-4, rtol=0)
@@ -681,6 +741,48 @@ def test_ssm_scan_kernel_matches_plain(cuda, B, S, DI, dtype):
         torch.testing.assert_close(y.float(), yr.float(), atol=1e-4,
                                    rtol=BF16_ULP)
         assert float((h - hr).abs().max()) <= 1e-4 * max(1.0, float(hr.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,DI,dtype", SSM_GPU_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, DI, dtype):
+    args = ssm_inputs(B, S, DI, dtype, cuda)
+    before = dict(_lib.LAUNCHES)
+    y, h = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["ssm_scan"] == before["ssm_scan"] + 1
+    name = "ssm_scan_bf16" if dtype == torch.bfloat16 else "ssm_scan_f32"
+    assert _lib.LAUNCHES[name] == before[name] + 1
+    assert_scan_close(y, h, *ssm_scan_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_where_exp_underflows(cuda, dtype):
+    # A of -1000 and more: exp(dt * A) underflows to 0 on most steps
+    args = ssm_inputs(2, 100, 64, dtype, cuda, a_scale=1000.0)
+    assert float(torch.exp(args[1].float()[..., None] * args[2]).min()) == 0.0
+    assert_scan_close(*ssm_scan(*args), *ssm_scan_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_reads_b_and_c_in_place(cuda, dtype):
+    """B and C as views into one projection output (the model's layout,
+    rows 2 N + 8 values apart), and float32 B and C beside bf16 u."""
+    u, dt, A, Bm, Cm, D = ssm_inputs(2, 150, 256, dtype, cuda)
+    for lead in (8, 1):                  # 16-byte copies; element copies
+        proj = torch.randn((2, 150, lead + 32), device=cuda).to(dtype)
+        Bv, Cv = proj[..., lead:lead + 16], proj[..., lead + 16:]
+        assert not Bv.is_contiguous()
+        want = ssm_scan_ref(u, dt, A, Bv, Cv, D)
+        assert_scan_close(*ssm_scan(u, dt, A, Bv, Cv, D), *want, dtype)
+    assert_scan_close(*ssm_scan(u, dt, A, Bm.float(), Cm.float(), D),
+                      *ssm_scan_ref(u, dt, A, Bm.float(), Cm.float(), D), dtype)
+
+
+def test_ssm_scan_repeats_bit_for_bit(cuda):
+    args = ssm_inputs(2, 300, 512, torch.bfloat16, cuda)
+    y1, h1 = ssm_scan(*args)
+    y2, h2 = ssm_scan(*args)
+    assert same_bits(y1, y2) and same_bits(h1, h2)
 
 
 def test_selective_scan_grads_through_the_plain_version(cuda):

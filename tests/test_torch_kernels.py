@@ -92,6 +92,53 @@ def test_fingerprint_diff_flags_exactly_the_changed_block():
     assert diff.tolist() == np.asarray(jdiff).tolist() == [False, True, False, False]
 
 
+# (dtype, elements, block_bytes): every word width, blocks of 4 B to over a
+# slice, tensors that end inside a block's last slice
+FP_SPLIT_CASES = [
+    (np.uint8, 3 * 4096 + 77, 4096),
+    (np.int8, 1001, 4),
+    (BF16, 2 * 4096 + 3, 4096 + 16),
+    (np.float16, 70_001, 64 * 1024),
+    (np.float32, 3 * CHUNK // 4 + 17, CHUNK),
+    (np.int32, 1, 1024),
+    (np.float64, 3000, 4096),
+    (np.int64, 257, 64),
+]
+
+
+@pytest.mark.parametrize("dtype,n,block", FP_SPLIT_CASES)
+@pytest.mark.parametrize("slice_bytes", [16, 1024, 4096, 64 * 1024])
+def test_fingerprint_partials_and_final_match_the_whole_digest(dtype, n, block,
+                                                               slice_bytes):
+    """The CUDA kernel's split: per-slice sums with positions counted from
+    the block's first word, then fmix32 of each block's sum, give the
+    reference's digests for any slice size."""
+    a = payload(dtype, n, seed=2)
+    x = to_torch(a)
+    parts = tfp.fingerprint_partials_ref(x, block, slice_bytes)
+    spb = tfp.slices_per_block(block, slice_bytes)
+    assert parts.shape == (tfp.n_blocks_of(x.numel() * x.element_size(), block), spb)
+    fp, none = tfp.fingerprint_final_ref(parts)
+    assert none is None
+    np.testing.assert_array_equal(fp.numpy().view(np.uint32),
+                                  jfp.fingerprint_blocks_ref(a, block))
+    assert torch.equal(fp, tfp.fingerprint_blocks_ref(x, block))
+    old = fp.clone()
+    old[::2] ^= 1
+    fp2, diff = tfp.fingerprint_final_ref(parts, old)
+    assert torch.equal(fp2, fp) and torch.equal(diff, fp != old)
+
+
+def test_fingerprint_split_wrappers_take_the_plain_versions_on_the_cpu():
+    x = to_torch(payload(BF16, 5 * CHUNK + 9))
+    parts = tfp.fingerprint_partials(x, block_bytes=4 * CHUNK)
+    assert parts.shape == (3, 4 * CHUNK // tfp.SLICE_BYTES)
+    assert torch.equal(parts, tfp.fingerprint_partials_ref(x, 4 * CHUNK,
+                                                           tfp.SLICE_BYTES))
+    assert torch.equal(tfp.fingerprint_final(parts)[0],
+                       tfp.fingerprint_blocks(x, block_bytes=4 * CHUNK))
+
+
 def test_fingerprint_rejects_bad_block_and_dtype():
     with pytest.raises(ValueError):
         tfp.fingerprint_blocks(torch.zeros(8), block_bytes=6)
