@@ -322,6 +322,7 @@ def phase_kernels(cfg, dev) -> dict:
     from repro_torch.kernels.quantize import (absmax, absmax_grid, absmax_ref,
                                               dequantize_int8,
                                               dequantize_int8_ref,
+                                              dequantize_layout,
                                               quantize_int8, quantize_with_inv,
                                               quantize_with_inv_ref)
 
@@ -408,17 +409,38 @@ def phase_kernels(cfg, dev) -> dict:
     # library yardstick: int8 tensor times a 0-d f32 tensor promotes to
     # f32(q) * f32(scale) in one fused elementwise call, the same bits
     s_dev = torch.tensor(np.float32(scale), device=dev)
-    need(same_bits(torch.mul(q, s_dev),
-                   dequantize_int8(q, scale, dtype=torch.float32)),
-         "dequantize disagrees with torch.mul(q, scale)")
+    for dt in (torch.float32, torch.bfloat16):
+        need(same_bits(torch.mul(q, s_dev).to(dt), dequantize_int8(q, scale, dtype=dt)),
+             f"dequantize disagrees with torch.mul(q, scale) ({dt})")
+    lay = dequantize_layout(torch.float32)
+    print(json.dumps({"dequantize_grid": dict(
+        lay, store="default (write-back)", trips_of_the_moment=q.numel()
+        / lay["values_per_trip"])}), flush=True)
+    # device time from a CUDA graph, kernel and library call in turns, three
+    # each, the median kept; the eager times beside them. Under the
+    # deterministic settings every torch.empty is filled first: the
+    # wrapper's output is not (kernel_output), and fill_ms is what such a
+    # fill of the output costs
+    deq = {dt: functools.partial(dequantize_int8, q, scale, dtype=dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    mul = functools.partial(torch.mul, q, s_dev)
+    turns = [(graph_ms([deq[torch.float32]], replays=20), graph_ms([mul], replays=20),
+              graph_ms([deq[torch.bfloat16]], replays=20)) for _ in range(3)]
     out["dequantize"] = dict(
-        ms=time_ms(lambda: dequantize_int8(q, scale, dtype=torch.float32)),
+        ms=statistics.median(t[0] for t in turns),
+        library_ms=statistics.median(t[1] for t in turns),
+        bf16_ms=statistics.median(t[2] for t in turns),
+        eager_ms=time_ms(deq[torch.float32]), library_eager_ms=time_ms(mul),
+        bf16_eager_ms=time_ms(deq[torch.bfloat16]),
+        fill_ms=graph_ms([functools.partial(torch.empty, q.shape, device=dev)],
+                         replays=20),
         plain_ms=time_ms(lambda: dequantize_int8_ref(q, scale, dtype=torch.float32)),
-        library_ms=time_ms(lambda: torch.mul(q, s_dev)), max_abs_err=max_abs_err(
+        max_abs_err=max_abs_err(
             dequantize_int8(q, scale, dtype=torch.float32),
             dequantize_int8_ref(q, scale, dtype=torch.float32)),
-        # convert, multiply
+        # convert, multiply; bf16: 1 + 2 bytes an element
         bound=bound(q.numel() * 5, q.numel() * 2),
+        bf16_bound=bound(q.numel() * 3, q.numel() * 2), layout=lay,
         shape=list(q.shape), dtype="int8->float32")
     del embed, moment, flat, norm, cases, xn
     torch.cuda.empty_cache()
@@ -500,7 +522,8 @@ def serving_kernels(dev) -> dict:
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_ref,
+                                                scan_layout)
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -639,15 +662,22 @@ def serving_kernels(dev) -> dict:
     hr, lr = rglru_scan_ref(a, b)
     need(same_bits(h, hr) and same_bits(h_last, lr),
          "rglru_scan differs from the plain sequential scan")
+    layout = {name: dict(scan_layout(B, W, dt), **next(
+        (r for n, r in ptxas_summary(_lib.ptxas_report()).items()
+         if n.startswith(f"rglru_kernel<{name}")), {}))
+        for name, dt in (("f32", f32), ("bf16", bf))}
+    print(json.dumps({"rglru_layout": layout}), flush=True)
+    scan = functools.partial(rglru_scan, a, b)
     out["rglru_scan"] = dict(
-        ms=time_ms(lambda: rglru_scan(a, b)),
+        ms=statistics.median(graph_ms([scan], replays=20) for _ in range(3)),
+        eager_ms=time_ms(scan),
         plain_ms=time_ms(lambda: rglru_scan_ref(a, b), reps=2, runs=3,
                          warmup=1),
         library_ms=None, max_abs_err=max_abs_err(h, hr),
         # a, b read, h written (float32), h_last written; a multiply and an
         # add per element
         bound=bound(a.numel() * 12 + h_last.numel() * 4, a.numel() * 2),
-        tol=0.0, shape=[B, S, W], dtype="float32")
+        layout=layout["f32"], tol=0.0, shape=[B, S, W], dtype="float32")
     del a, b, h, hr
     torch.cuda.empty_cache()
     return out
@@ -1401,6 +1431,7 @@ def _profile(fn, n: int) -> dict:
     device busy time (the sum of kernel self times) and the kernels and
     host operations that take the most, per call, in ms."""
     import torch
+    from repro_torch.kernels import _lib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1421,12 +1452,21 @@ def _profile(fn, n: int) -> dict:
     top_dev = sorted(on_dev, key=dev_us, reverse=True)[:8]
     top_host = sorted((e for e in ev if e.device_type == DeviceType.CPU),
                       key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    # the port's kernels (csrc/*.cu), ranked or not, by name and template
+    # arguments
+    ours = {k.split("<")[0] for k in ptxas_summary(_lib.ptxas_report())}
+    port: dict[str, float] = {}
+    for e in on_dev:
+        m = re.match(r"void \(anonymous namespace\)::((\w+).*)\(", e.key)
+        if m and m.group(2) in ours:
+            port[m.group(1)] = port.get(m.group(1), 0.0) + dev_us(e) / 1e3 / n
     return {"calls": n, "wall_ms": wall * 1e3 / n,
             "device_busy_ms": busy if busy > 0 else "not measured",
             "device_busy_share": busy / (wall * 1e3 / n) if busy > 0 else None,
             "top_device_ms": [[e.key[:80], dev_us(e) / 1e3 / n] for e in top_dev],
             "top_host_ms": [[e.key[:80], e.self_cpu_time_total / 1e3 / n]
-                            for e in top_host]}
+                            for e in top_host],
+            "port_kernels_ms": port}
 
 
 def phase_serve(arch, dev, workdir, card, launches) -> dict:

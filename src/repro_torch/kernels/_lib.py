@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -87,6 +88,8 @@ _SIGNATURES = {
     "spot_quantize": (_P, _I64, _I32, _F32, _P, _P),
     # (q, n, scale, dtype_code, out, stream)
     "spot_dequantize": (_P, _I64, _F32, _I32, _P, _P),
+    # (dtype_code, int[4] out) -> dequantize's resident grid and trip
+    "spot_dequantize_layout": (_I32, _P),
     # (q, k, v, o, lse, B, Sq, Skv, H, KV, hd, dtype_code, causal, window,
     #  scale, stream)
     "spot_flash_attention_fwd": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
@@ -115,6 +118,8 @@ _SIGNATURES = {
     "spot_decode_merge": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P),
     # (a, b, h, h_last, B, S, W, dtype_code, stream)
     "spot_rglru_scan": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
+    # (B, W, dtype_code, int[6] out) -> the RG-LRU scan's launch layout
+    "spot_rglru_scan_layout": (_I32, _I32, _I32, _P),
     # (u, dt, A, B, C, D, y, h_last, B, S, DI, N, ld_bc, dtype_code,
     #  bc_dtype_code, stream)
     "spot_ssm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
@@ -289,6 +294,18 @@ def require_cuda(t: torch.Tensor, what: str, dtypes=None) -> None:
         raise TypeError(f"{what}: unsupported dtype {t.dtype}")
     if t.data_ptr() % 4:
         raise ValueError(f"{what}: data pointer must be 4-byte aligned")
+
+
+def kernel_output(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A contiguous tensor for a kernel that writes every element of it,
+    left unwritten. Under ``torch.use_deterministic_algorithms`` a
+    ``torch.empty`` is filled with NaN first
+    (``torch.utils.deterministic.fill_uninitialized_memory``): a whole
+    extra pass over the output, as long as a byte-bound kernel's own writes.
+    No element here is read before the kernel writes it, so the storage is
+    allocated bare and viewed."""
+    storage = torch.UntypedStorage(math.prod(shape) * dtype.itemsize, device=device)
+    return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, tuple(shape))
 
 
 def refuse_grad(what: str, *tensors: torch.Tensor) -> None:

@@ -16,7 +16,12 @@
 // issues four independent 16-byte loads a trip (evict-first, __ldcs: the
 // tensor is read once), in CTAs of 1024 threads over a grid of exactly the
 // CTAs the card holds at once (its SMs times the kernel's occupancy,
-// computed once).
+// computed once). dequantize runs over its own resident grid too, four
+// independent loads of 4 (float32) or 8 (bf16, f16) int8 a thread and
+// trip, each widened into one 16-byte store, so a warp's loads and stores
+// each cover one contiguous span. Its writes are 80% of its bytes; on the
+// H100, 16-byte loads of int8 widened into four strided 16-byte stores,
+// evict-first stores (__stcs) and CTAs of 1024 threads ran no faster.
 //
 // Bit-exactness with the host (checkpoint/serialize.py) is the contract:
 //  * absmax is a max of non-negative floats, done on their uint32 bits
@@ -43,6 +48,8 @@ constexpr int THREADS = 256;
 constexpr int MAX_PARTIALS = 1024;
 constexpr int ABSMAX_THREADS = 1024;   // absmax's first pass: two CTAs an SM
 constexpr int ABSMAX_LOADS = 4;        // independent 16-byte loads per thread and trip
+constexpr int DEQ_THREADS = 256;       // dequantize: CTAs of 256 over the resident grid
+constexpr int DEQ_LOADS = 4;           // independent loads per thread and trip
 
 __device__ __forceinline__ uint32_t warp_max(uint32_t v) {
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -154,30 +161,44 @@ quantize_kernel(const T* __restrict__ x, long long n, float inv, bool vec,
   }
 }
 
+// One load of VEC int8 widened to VEC values of T: one 16-byte store
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+using DeqIn = typename std::conditional<sizeof(T) == 4, uint32_t, uint2>::type;
+
+template <typename T>
+__device__ __forceinline__ uint4 widen(DeqIn<T> raw, float scale) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  alignas(16) T vals[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) vals[k] = spot::from_f32<T>(static_cast<float>(e[k]) * scale);
+  return *reinterpret_cast<const uint4*>(vals);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DEQ_THREADS)
 dequantize_kernel(const int8_t* __restrict__ q, long long n, float scale,
                   bool vec, T* __restrict__ out) {
   const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
   if (vec) {
-    // one 16-byte store of outputs per thread and iteration (4 f32 or 8
-    // bf16/f16 from a 4- or 8-byte load of int8), so a warp's stores cover
-    // one contiguous 512-byte span
+    // each load of VEC int8 (4 for float32, 8 for bf16/f16) becomes one
+    // 16-byte store, so a warp's loads and its stores each cover one
+    // contiguous span; DEQ_LOADS independent loads a thread and trip
     constexpr int VEC = 16 / sizeof(T);
-    using In = typename std::conditional<VEC == 4, uint32_t, uint2>::type;
     const long long nv = n / VEC;
-    const In* qv = reinterpret_cast<const In*>(q);
-    for (long long i = tid; i < nv; i += stride) {
-      const In raw = qv[i];
-      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-      alignas(16) T vals[VEC];
+    const DeqIn<T>* qv = reinterpret_cast<const DeqIn<T>*>(q);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    long long i = tid;
+    for (; i + (DEQ_LOADS - 1) * stride < nv; i += DEQ_LOADS * stride) {
+      DeqIn<T> raw[DEQ_LOADS];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        vals[k] = spot::from_f32<T>(static_cast<float>(e[k]) * scale);
-      reinterpret_cast<uint4*>(out)[i] = *reinterpret_cast<const uint4*>(vals);
+      for (int u = 0; u < DEQ_LOADS; ++u) raw[u] = __ldcs(qv + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < DEQ_LOADS; ++u) ov[i + u * stride] = widen<T>(raw[u], scale);
     }
+    for (; i < nv; i += stride) ov[i] = widen<T>(__ldcs(qv + i), scale);
     done = nv * VEC;
   }
   for (long long i = done + tid; i < n; i += stride)
@@ -198,6 +219,29 @@ int absmax_resident_grid() {
     return std::min(std::max(sms * per_sm, 1), MAX_PARTIALS);
   }();
   return grid;
+}
+
+// dequantize's grid: every CTA resident at once
+template <typename T>
+int dequantize_resident_grid() {
+  static const int grid = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dequantize_kernel<T>,
+                                                  DEQ_THREADS, 0);
+    return std::max(sms * per_sm, 1);
+  }();
+  return grid;
+}
+
+int dequantize_grid(int dtype_code) {
+  switch (dtype_code) {
+    case spot::kF32: return dequantize_resident_grid<float>();
+    case spot::kBF16: return dequantize_resident_grid<__nv_bfloat16>();
+    case spot::kF16: return dequantize_resident_grid<__half>();
+    default: return -1;
+  }
 }
 
 int absmax_grid(int dtype_code) {
@@ -288,23 +332,39 @@ extern "C" int spot_quantize(const void* x, long long n, int dtype_code,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dequantize's layout for a target dtype_code, written to out[4]: CTAs
+// of the resident grid, threads a CTA, loads a thread and trip, values a
+// load.
+extern "C" int spot_dequantize_layout(int dtype_code, int* out) {
+  out[0] = dequantize_grid(dtype_code);
+  if (out[0] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  out[1] = DEQ_THREADS;
+  out[2] = DEQ_LOADS;
+  out[3] = dtype_code == spot::kF32 ? 4 : 8;
+  return 0;
+}
+
 extern "C" int spot_dequantize(const void* q, long long n, float scale,
                                int dtype_code, void* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int grid = blocks_for(n);
+  const int resident = dequantize_grid(dtype_code);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // values one CTA widens in a trip: at most one trip per CTA on a small q
+  const int grid = spot::grid_for(
+      n, DEQ_THREADS * DEQ_LOADS * (dtype_code == spot::kF32 ? 4 : 8), resident);
   const bool vec = spot::aligned(q, 16) && spot::aligned(out, 16);
   const auto* qi = static_cast<const int8_t*>(q);
   switch (dtype_code) {
     case spot::kF32:
-      dequantize_kernel<float><<<grid, THREADS, 0, s>>>(
+      dequantize_kernel<float><<<grid, DEQ_THREADS, 0, s>>>(
           qi, n, scale, vec, static_cast<float*>(out));
       break;
     case spot::kBF16:
-      dequantize_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+      dequantize_kernel<__nv_bfloat16><<<grid, DEQ_THREADS, 0, s>>>(
           qi, n, scale, vec, static_cast<__nv_bfloat16*>(out));
       break;
     case spot::kF16:
-      dequantize_kernel<__half><<<grid, THREADS, 0, s>>>(
+      dequantize_kernel<__half><<<grid, DEQ_THREADS, 0, s>>>(
           qi, n, scale, vec, static_cast<__half*>(out));
       break;
     default:

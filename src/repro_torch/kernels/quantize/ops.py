@@ -11,6 +11,8 @@ A CUDA tensor always launches the kernels or raises; there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -31,6 +33,20 @@ def absmax_grid(dtype: torch.dtype) -> tuple[int, int]:
     grid = _lib.library().spot_absmax_grid(_lib.DTYPE_CODES[dtype])
     itemsize = torch.finfo(dtype).bits // 8
     return grid, grid * ABSMAX_THREADS * ABSMAX_LOADS * 16 // itemsize
+
+
+def dequantize_layout(dtype: torch.dtype) -> dict:
+    """dequantize's launch layout for a ``dtype`` output on this card: the
+    resident grid (SMs times the kernel's occupancy), threads a CTA, loads
+    a thread and trip, int8 values a load (each widened into one 16-byte
+    store), and the values a trip of the whole grid covers."""
+    out = (ctypes.c_int * 4)()
+    _lib.check(_lib.library().spot_dequantize_layout(_lib.DTYPE_CODES[dtype], out),
+               "dequantize_layout")
+    lay = dict(zip(("ctas", "threads", "loads_per_trip", "values_per_load"), out))
+    lay["values_per_trip"] = (lay["ctas"] * lay["threads"] * lay["loads_per_trip"]
+                              * lay["values_per_load"])
+    return lay
 
 
 def absmax(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +108,7 @@ def dequantize_int8(q: torch.Tensor, scale, *, dtype: torch.dtype
     _lib.require_cuda(q, "dequantize", (torch.int8,))
     if dtype not in FLOAT_DTYPES:
         raise TypeError(f"dequantize: unsupported target dtype {dtype}")
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    out = _lib.kernel_output(q.shape, dtype, q.device)
     if q.numel() == 0:
         return out
     err = _lib.library().spot_dequantize(

@@ -10,6 +10,8 @@ fallback."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _lib
@@ -30,7 +32,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor
     _lib.require_cuda(a, "rglru_scan a", _lib.SERVING_DTYPES)
     _lib.require_cuda(b, "rglru_scan b", _lib.SERVING_DTYPES)
     Bb, S, W = a.shape
-    h = torch.empty_like(a)
+    h = _lib.kernel_output(a.shape, a.dtype, a.device)
     h_last = torch.zeros((Bb, W), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h, h_last
@@ -40,6 +42,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor
     _lib.check(err, "rglru_scan")
     _lib.LAUNCHES["rglru_scan"] += 1
     return h, h_last
+
+
+def scan_layout(B: int, W: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch layout at (B, ., W): channels a CTA (one thread
+    each), steps a staged chunk, ring slots, CTAs, dynamic shared memory
+    bytes a CTA, CTAs resident on an SM."""
+    out = (ctypes.c_int * 6)()
+    _lib.check(_lib.library().spot_rglru_scan_layout(
+        B, W, _lib.DTYPE_CODES[dtype], out), "rglru_scan_layout")
+    return dict(zip(("channels_per_cta", "steps_per_chunk", "stages", "ctas",
+                     "smem_bytes", "ctas_per_sm"), out))
 
 
 class _LruScan(torch.autograd.Function):

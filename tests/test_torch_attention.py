@@ -236,10 +236,17 @@ def test_windowed_plain_attention_matches_reference():
 
 
 RGLRU_CASES = [
-    # B, S, W, bw, ch, dtype, tol (tests/test_kernels.py)
+    # B, S, W, bw, ch, dtype, tol (tests/test_kernels.py); bw None: shapes
+    # the Pallas kernel's S % chunk and W % block_w asserts refuse, held
+    # against the jitted reference alone
     (2, 128, 256, 128, 32, "float32", 1e-4),
     (3, 64, 128, 64, 64, "float32", 1e-4),
     (1, 128, 256, 128, 32, "bfloat16", 5e-2),
+    (2, 1, 256, 128, 32, "float32", 1e-4),           # one step
+    (2, 1, 200, None, None, "float32", 1e-4),
+    (3, 65, 200, None, None, "float32", 1e-4),       # W % 128, S % 64
+    (2, 77, 201, None, None, "float32", 1e-4),       # rows off 16 bytes
+    (1, 65, 201, None, None, "bfloat16", 5e-2),
 ]
 
 
@@ -255,9 +262,10 @@ def test_rglru_plain_matches_reference_and_interpret(B, S, W, bw, ch, dtype,
     jb, b = pair(rng, (B, S, W), dtype)
     h, h_last = rglru_scan(a, b)
     assert h.dtype == a.dtype and h_last.dtype == torch.float32
-    for jh, jlast in (jit_rglru_ref(ja, jb),
-                      jax_rglru_scan(ja, jb, block_w=bw, chunk=ch,
-                                     interpret=True)):
+    outs = [jit_rglru_ref(ja, jb)]
+    if bw is not None:
+        outs.append(jax_rglru_scan(ja, jb, block_w=bw, chunk=ch, interpret=True))
+    for jh, jlast in outs:
         np.testing.assert_allclose(f32(h), f32(jh), atol=tol)
         np.testing.assert_allclose(h_last.numpy(), np.asarray(jlast), atol=tol)
     np.testing.assert_array_equal(f32(rglru_scan_ref(a, b)[0]), f32(h))

@@ -257,6 +257,52 @@ def test_quantize_kernels_on_misaligned_views(cuda):
                      qz.dequantize_int8_ref(qr[4:], sr, dtype=torch.float32))
 
 
+def _dequantize_edges(dtype):
+    """(name, int8 payload on the CPU) at dequantize's edges: fewer values
+    than one load, one either side of a 16-value row, one either side of a
+    whole trip of the resident grid."""
+    trip = qz.dequantize_layout(dtype)["values_per_trip"]
+    big = payload(torch.int8, trip + 1).clamp_(-127, 127)
+    return [(f"n{n}", big[:n]) for n in (1, 15, 16, 17)] + [
+        ("trip_minus_1", big[:trip - 1]), ("trip", big[:trip]),
+        ("trip_plus_1", big)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_dequantize_at_the_grid_and_load_edges(cuda, dtype):
+    lay = qz.dequantize_layout(dtype)
+    assert lay["ctas"] >= 132 and lay["values_per_load"] == 16 // dtype.itemsize
+    scale = float(np.float32(0.0123))
+    for name, q in _dequantize_edges(dtype):
+        before = _lib.LAUNCHES["dequantize"]
+        got = qz.dequantize_int8(q.to(cuda), scale, dtype=dtype)
+        assert _lib.LAUNCHES["dequantize"] == before + 1, name
+        assert same_bits(got, qz.dequantize_int8_ref(q, scale, dtype=dtype)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_dequantize_misaligned_input_and_output(cuda, dtype):
+    # the input a view 4 bytes into its buffer; the output written through
+    # the library at one value past a 16-byte boundary (the wrapper always
+    # allocates its output, so only a direct call reaches that path)
+    scale = float(np.float32(0.37))
+    q = payload(torch.int8, 70_001).clamp_(-127, 127)
+    want = qz.dequantize_int8_ref(q, scale, dtype=dtype)
+    qc = q.to(cuda)
+    qv = qc.new_empty(q.numel() + 4)[4:].copy_(qc)
+    assert qv.data_ptr() % 16 != 0
+    assert same_bits(qz.dequantize_int8(qv, scale, dtype=dtype), want)
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+    out = buf[1:]
+    assert out.data_ptr() % 16 != 0
+    err = _lib.library().spot_dequantize(
+        qc.data_ptr(), q.numel(), scale, _lib.DTYPE_CODES[dtype], out.data_ptr(),
+        _lib.stream_ptr(cuda))
+    _lib.check(err, "dequantize")
+    torch.cuda.synchronize()
+    assert same_bits(out, want)
+
+
 # (atol, rtol) of an attention output against its plain version
 ATT_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-5, 2 ** -7)}
 
@@ -488,18 +534,41 @@ def test_flash_decode_kernel_reads_a_ring(cuda, pos):
 
 
 RGLRU_GPU_CASES = [
-    # B, S, W, dtype
-    (2, 128, 256, torch.float32),
-    (4, 1984, 2560, torch.float32),
-    (3, 77, 200, torch.float32),                  # W a multiple of no block
-    (1, 128, 256, torch.bfloat16),
+    # B, S, W, dtype, offset: the view starts `offset` values into its
+    # buffer (4 bytes: contiguous, off the 16-byte boundary). The kernel
+    # stages 64 steps a chunk, 32 float32 or 64 bf16 channels a CTA.
+    (2, 128, 256, torch.float32, 0),
+    (4, 1984, 2560, torch.float32, 0),
+    (3, 77, 200, torch.float32, 0),               # W a multiple of no block
+    (1, 128, 256, torch.bfloat16, 0),
+    (2, 1, 256, torch.float32, 0),                # one step
+    (2, 63, 256, torch.float32, 0),               # a chunk less one step
+    (2, 64, 256, torch.float32, 0),               # one whole chunk
+    (2, 65, 256, torch.float32, 0),               # a chunk and one step
+    (2, 65, 256, torch.bfloat16, 0),
+    (2, 130, 201, torch.float32, 0),              # rows off 16-byte copies
+    (2, 130, 201, torch.bfloat16, 0),
+    (3, 70, 20, torch.float32, 0),                # W under one CTA's channels
+    (3, 70, 40, torch.bfloat16, 0),
+    (1, 1984, 2560, torch.float32, 0),            # B = 1 at recurrentgemma's
+    (4, 1984, 2560, torch.bfloat16, 0),           # bf16 at recurrentgemma's
+    (2, 100, 256, torch.float32, 1),              # misaligned contiguous views
+    (2, 100, 256, torch.bfloat16, 2),
 ]
 
 
-@pytest.mark.parametrize("B,S,W,dtype", RGLRU_GPU_CASES)
-def test_rglru_scan_kernel_matches_plain_bit_for_bit(cuda, B, S, W, dtype):
-    a = torch.sigmoid(randn((B, S, W), torch.float32, S, cuda)).to(dtype)
-    b = randn((B, S, W), dtype, S + 1, cuda)
+@pytest.mark.parametrize("B,S,W,dtype,offset", RGLRU_GPU_CASES)
+def test_rglru_scan_kernel_matches_plain_bit_for_bit(cuda, B, S, W, dtype, offset):
+    n = B * S * W
+
+    def view(x):
+        buf = torch.empty(n + offset, dtype=dtype, device=cuda)
+        out = buf[offset:].view(B, S, W).copy_(x)
+        assert out.is_contiguous() and (out.data_ptr() % 16 != 0) == (offset > 0)
+        return out
+
+    a = view(torch.sigmoid(randn((B, S, W), torch.float32, S, cuda)).to(dtype))
+    b = view(randn((B, S, W), dtype, S + 1, cuda))
     before = _lib.LAUNCHES["rglru_scan"]
     h, h_last = rglru_scan(a, b)
     torch.cuda.synchronize()

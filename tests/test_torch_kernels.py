@@ -219,7 +219,7 @@ def test_int8_scale_inv_identical(absmax):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n", [1, 1000, 4096 + 3])
+@pytest.mark.parametrize("n", [1, 1000, 4096 + 3, 15, 16, 17])
 def test_dequantize_matches_interpret_and_host(dtype, n):
     rng = np.random.default_rng(n)
     qv = rng.integers(-127, 128, n).astype(np.int8)
@@ -257,6 +257,19 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     q, s = tq.quantize_int8(x)
     tq.dequantize_int8(q, s, dtype=torch.float32)
     assert all(v == 0 for v in _lib.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", [(3, 5, 7), (0, 4), (1,)])
+def test_kernel_output_is_a_bare_contiguous_tensor(dtype, shape):
+    # under deterministic algorithms torch.empty fills with NaN; the kernel
+    # outputs are allocated bare, with the shape, dtype and size asked for
+    x = _lib.kernel_output(shape, dtype, torch.device("cpu"))
+    assert x.shape == shape and x.dtype == dtype and x.is_contiguous()
+    assert x.untyped_storage().nbytes() == x.numel() * dtype.itemsize
+    assert x.storage_offset() == 0
+    x.fill_(1)
+    assert x.sum().item() == x.numel()
 
 
 def test_library_refuses_without_a_gpu(monkeypatch):
