@@ -8,8 +8,10 @@ and the selective scan in float32 and bfloat16 within stated tolerances)
 and times both, then drives the Spot-on loop through the entry points a
 user calls, at phi3-mini's published width cut to a few layers and at
 gemma3-1b's cut to one period, trains gemma3-1b at its full published
-config, and serves gemma3-1b, recurrentgemma-2b, phi3-mini and
-falcon-mamba-7b at their full published configs, all with seeded weights:
+config, serves gemma3-1b, recurrentgemma-2b, phi3-mini, falcon-mamba-7b,
+deepseek-moe-16b, minitron-8b and musicgen-medium at their full published
+configs, and runs the spot loops on deepseek-moe-16b's width, all with
+seeded weights:
 
   kernels         fingerprint (both launches) / absmax / quantize /
                   dequantize vs plain; flash-attention forward, flash
@@ -44,6 +46,19 @@ falcon-mamba-7b at their full published configs, all with seeded weights:
                   float32 copy's decode logits against its teacher-forced
                   logits; a mid-generation save and restore that must
                   continue to bitwise the same tokens
+  serve_deepseek_moe, serve_minitron
+                  the same for the full MoE (16.4 B, routed prefill,
+                  dropless decode; its float32 copy cut to the prelude and
+                  two MoE layers, batch 1, 512 + 16 tokens, at a capacity
+                  no pair overflows, each cut printed under "reduced") and
+                  for minitron-8b (GQA 4, ungated squared ReLU)
+  spot_loop_moe   the spot_loop contract at deepseek-moe-16b's width cut
+                  to its prelude and one MoE layer, the factored second
+                  moment, sequences of 1024; the aux loss finite, nonzero
+                  and equal in both runs
+  embeds_musicgen musicgen-medium from seeded frame embeddings: prefill,
+                  15 decode steps fed the next frames, float32 decode
+                  logits against teacher forcing
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
@@ -94,9 +109,13 @@ SERVE_B, PROMPT, NEW, CACHE_LEN = 4, 1984, 64, 2048   # serving phases
 SAVE_AT = 32                   # new tokens before the mid-generation save
 LOGIT_TOL = 2e-3               # float32 decode vs teacher-forced logits
 TRAIN_B, TRAIN_S = 2, 2048     # gemma3-1b training batch
-PHI3_S = 2048                  # the kernels' phi3-mini case (32 heads of 96)
+PHI3_S = 2048                  # the kernels phase's 2048-token prefill cases
 TRAIN_STEPS = 8
 LOOP_LAYERS, LOOP_S = 6, 1024  # spot_loop_gemma3: one period, its sequences
+MOE_LOOP_LAYERS = 2            # spot_loop_moe: deepseek's prelude + 1 MoE layer
+EMB_PROMPT, EMB_NEW = 512, 16  # embeds phase: prompt frames, new tokens
+MOE_TF_CUT = {"n_layers": 3, "batch": 1, "prompt": 512, "new_tokens": 16,
+              "dropless": True}   # deepseek's float32 teacher-forcing copy
 GRAD_TOL = 2e-4                # backward kernels vs plain in float32, of
                                # max(1, max|plain|): the reference's
                                # gradient tolerance, 10 x 2e-5
@@ -558,18 +577,37 @@ def serving_kernels(dev) -> dict:
             tol=ATT_TOL, shape=[B, S, H, KV, hd], window=window,
             dtype="float32", kernel="CUDA cores")
         del a32, o, lse
-    # phi3-mini's heads (32 of 96) at a PHI3_S-token causal prefill
-    qp, kp, vp = (torch.randn((1, PHI3_S, 32, 96), generator=g,
-                              device=dev).to(bf) for _ in range(3))
-    o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
-    want, want_lse = attention_ref(qp, kp, vp, causal=True)
-    flash["phi3_hd96"] = dict(
-        _fwd_times(qp, kp, vp, 0, BF16_FLOPS_PER_S),
-        max_abs_err=_att_check("flash_attention phi3 hd 96", o, want, lse,
-                               want_lse),
-        tol=ATT_TOL, bf16_rtol=BF16_RTOL, shape=[1, PHI3_S, 32, 32, 96],
-        window=0, dtype="bfloat16", kernel="wgmma (tensor cores)")
-    del qp, kp, vp, o, lse, want
+    # the other served models' heads at a causal prefill: phi3-mini's (32
+    # of 96), deepseek-moe's (16 of 128, MHA) and minitron's (32 of 128, 8
+    # KV) over PHI3_S tokens, musicgen's (24 of 64, MHA) at its 4 x 512
+    # frames; each in bf16 and widened to float32, as their teacher-forced
+    # copies run it
+    for name, Bf, Sf, Hf, KVf, hdf in (
+            ("phi3_hd96", 1, PHI3_S, 32, 32, 96),
+            ("deepseek_hd128", 1, PHI3_S, 16, 16, 128),
+            ("minitron_gqa4", 1, PHI3_S, 32, 8, 128),
+            ("musicgen_hd64", SERVE_B, EMB_PROMPT, 24, 24, 64)):
+        qp = torch.randn((Bf, Sf, Hf, hdf), generator=g, device=dev).to(bf)
+        kp, vp = (torch.randn((Bf, Sf, KVf, hdf), generator=g,
+                              device=dev).to(bf) for _ in range(2))
+        o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
+        want, want_lse = attention_ref(qp, kp, vp, causal=True)
+        flash[name] = dict(
+            _fwd_times(qp, kp, vp, 0, BF16_FLOPS_PER_S),
+            max_abs_err=_att_check(f"flash_attention {name}", o, want, lse,
+                                   want_lse),
+            tol=ATT_TOL, bf16_rtol=BF16_RTOL, shape=[Bf, Sf, Hf, KVf, hdf],
+            window=0, dtype="bfloat16", kernel="wgmma (tensor cores)")
+        a32 = tuple(t.to(f32) for t in (qp, kp, vp))
+        o32, lse32 = flash_attention_fwd(*a32, True, 0)
+        want32, wl32 = attention_ref(*a32, causal=True)
+        flash32[name] = dict(
+            _fwd_times(*a32, 0, OPS32_PER_S),
+            max_abs_err=_att_check(f"flash_attention {name} float32", o32,
+                                   want32, lse32, wl32),
+            tol=ATT_TOL, shape=[Bf, Sf, Hf, KVf, hdf], window=0,
+            dtype="float32", kernel="CUDA cores")
+        del qp, kp, vp, o, lse, want, a32, o32, lse32, want32, wl32
     # the rows: the global layer's case; the others beside it
     out["flash_attention_fwd_wgmma"] = dict(flash["global"], cases=flash)
     out["flash_attention_fwd_cudacore"] = dict(flash32["global"], cases=flash32)
@@ -578,8 +616,10 @@ def serving_kernels(dev) -> dict:
 
     # decode: gemma3's full cache at valid_len 2000 (not a multiple of the
     # kernel's 32-key tile) and its filled 512-slot ring, recurrentgemma's
-    # 2048-slot ring at its first decode step (10 heads, 1985 filled), and
-    # phi3-mini's full cache (32 heads of 96, MHA, all 2048 rows). Cache
+    # 2048-slot ring at its first decode step (10 heads, 1985 filled),
+    # phi3-mini's full cache (32 heads of 96, MHA, all 2048 rows),
+    # deepseek-moe's (16 of 128, MHA) and minitron's (32 of 128, 8 KV)
+    # full caches, and musicgen's (24 of 64, MHA) at its last frame. Cache
     # copies holding twice the L2 between them rotate through the timed
     # calls, so each call reads its cache from device memory as a decode
     # step does; kernel, plain version and SDPA are each timed from a CUDA
@@ -591,7 +631,11 @@ def serving_kernels(dev) -> dict:
             ("full", H, KV, hd, CACHE_LEN, PROMPT + 16),
             ("ring", H, KV, hd, 512, 512),
             ("ring_partial", 10, KV, hd, CACHE_LEN, PROMPT + 1),
-            ("phi3_hd96", 32, 32, 96, CACHE_LEN, CACHE_LEN)):
+            ("phi3_hd96", 32, 32, 96, CACHE_LEN, CACHE_LEN),
+            ("deepseek_hd128", 16, 16, 128, CACHE_LEN, CACHE_LEN),
+            ("minitron_gqa4", 32, 8, 128, CACHE_LEN, CACHE_LEN),
+            ("musicgen_hd64", 24, 24, 64, EMB_PROMPT + EMB_NEW,
+             EMB_PROMPT + EMB_NEW)):
         qd = torch.randn((B, 1, Hd, hdd), generator=g, device=dev).to(bf)
         n_copies = max(8, -(-2 * L2_BYTES // (B * Sc * KVd * hdd * 2 * 2)))
         ks = [torch.randn((B, Sc, KVd, hdd), generator=g, device=dev).to(bf)
@@ -733,8 +777,9 @@ def _sdpa_bwd_ms(q, k, v, do, window) -> float:
 def training_kernels(dev) -> dict:
     """The flash-attention backward kernels against their plain versions at
     gemma3-1b's training shapes (bf16, and float32 on the same values
-    widened), plus correctness cases: phi3-mini's head dim 96, a padded
-    sequence and GQA through the full ``flash_attention_bwd``. Times of
+    widened), at phi3-mini's and deepseek-moe's heads (bf16), plus
+    correctness cases: phi3-mini's head dim 96, a padded sequence and GQA
+    through the full ``flash_attention_bwd``. Times of
     each pass, its plain version and SDPA's backward."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -843,41 +888,46 @@ def training_kernels(dev) -> dict:
     del q, k, v, do
     torch.cuda.empty_cache()
 
-    # the tensor-core dkv and dq passes at phi3-mini's heads (32 of 96),
-    # PHI3_S tokens
-    qp, dop, kp, vp = (torch.randn((1, PHI3_S, 32, 96), generator=g,
-                                   device=dev).to(bf) for _ in range(4))
-    o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
-    dsum = (dop.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (qp, kp, vp, dop, lse, dsum)
-    err = max(_grad_check(f"dkv phi3_hd96 {n}", x, y)
-              for n, x, y in zip(("dk", "dv"),
-                                 flash_attention_dkv(*args, True, 0),
-                                 attention_dkv_ref(*args, causal=True)))
-    err_dq = _grad_check("dq phi3_hd96", flash_attention_dq(*args, True, 0),
-                         attention_dq_ref(*args, causal=True))
-    pairs = 32 * _pairs(PHI3_S, 0)
-    common = dict(library_ms=_sdpa_bwd_ms(qp, kp, vp, dop, 0),
-                  kernel="wgmma (tensor cores)", shape=[1, PHI3_S, 32, 32, 96],
-                  window=0, dtype="bfloat16", tol=GRAD_TOL,
-                  library="SDPA backward (both passes)")
-    ms = time_ms(lambda: flash_attention_dkv(*args, True, 0))
-    dkv_cases["phi3_hd96"] = dict(
-        ms=ms, plain_ms=time_ms(lambda: attention_dkv_ref(*args, causal=True),
-                                reps=3), max_abs_err=err,
-        bound=bound(qp.numel() * 8 + lse.numel() * 8 + qp.numel() * 8,
-                    pairs * 96 * 8, BF16_FLOPS_PER_S),
-        tflops=pairs * 96 * 8 / ms / 1e9, **common)
-    ms = time_ms(lambda: flash_attention_dq(*args, True, 0))
-    dq_cases["phi3_hd96"] = dict(
-        ms=ms, plain_ms=time_ms(lambda: attention_dq_ref(*args, causal=True),
-                                reps=3), max_abs_err=err_dq,
-        # q, do, k, v, lse, D read; dq written in bf16
-        bound=bound(qp.numel() * 2 * 5 + lse.numel() * 8, pairs * 96 * 6,
-                    BF16_FLOPS_PER_S),
-        tflops=pairs * 96 * 6 / ms / 1e9, bf16_ulps=2, **common)
-    del qp, kp, vp, dop, o, lse, dsum, args
-    torch.cuda.empty_cache()
+    # the tensor-core dkv and dq passes at phi3-mini's heads (32 of 96,
+    # PHI3_S tokens) and at spot_loop_moe's (deepseek-moe's 16 of 128, MHA,
+    # 2 x LOOP_S)
+    for name, Bh, Sh, Hh, hdh in (("phi3_hd96", 1, PHI3_S, 32, 96),
+                                  ("deepseek_hd128", 2, LOOP_S, 16, 128)):
+        qp, dop, kp, vp = (torch.randn((Bh, Sh, Hh, hdh), generator=g,
+                                       device=dev).to(bf) for _ in range(4))
+        o, lse = flash_attention_fwd(qp, kp, vp, True, 0)
+        dsum = (dop.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (qp, kp, vp, dop, lse, dsum)
+        err = max(_grad_check(f"dkv {name} {n}", x, y)
+                  for n, x, y in zip(("dk", "dv"),
+                                     flash_attention_dkv(*args, True, 0),
+                                     attention_dkv_ref(*args, causal=True)))
+        err_dq = _grad_check(f"dq {name}", flash_attention_dq(*args, True, 0),
+                             attention_dq_ref(*args, causal=True))
+        pairs = Bh * Hh * _pairs(Sh, 0)
+        common = dict(library_ms=_sdpa_bwd_ms(qp, kp, vp, dop, 0),
+                      kernel="wgmma (tensor cores)",
+                      shape=[Bh, Sh, Hh, Hh, hdh], window=0,
+                      dtype="bfloat16", tol=GRAD_TOL,
+                      library="SDPA backward (both passes)")
+        ms = time_ms(lambda: flash_attention_dkv(*args, True, 0))
+        dkv_cases[name] = dict(
+            ms=ms, plain_ms=time_ms(lambda: attention_dkv_ref(
+                *args, causal=True), reps=3), max_abs_err=err,
+            # q, do, k, v (bf16), lse, D read; dk, dv written in float32
+            bound=bound(qp.numel() * 8 + lse.numel() * 8 + qp.numel() * 8,
+                        pairs * hdh * 8, BF16_FLOPS_PER_S),
+            tflops=pairs * hdh * 8 / ms / 1e9, **common)
+        ms = time_ms(lambda: flash_attention_dq(*args, True, 0))
+        dq_cases[name] = dict(
+            ms=ms, plain_ms=time_ms(lambda: attention_dq_ref(
+                *args, causal=True), reps=3), max_abs_err=err_dq,
+            # q, do, k, v, lse, D read; dq written in bf16
+            bound=bound(qp.numel() * 2 * 5 + lse.numel() * 8,
+                        pairs * hdh * 6, BF16_FLOPS_PER_S),
+            tflops=pairs * hdh * 6 / ms / 1e9, bf16_ulps=2, **common)
+        del qp, kp, vp, dop, o, lse, dsum, args
+        torch.cuda.empty_cache()
 
     # the whole backward (padding, both passes, the group sums) on more
     # shapes: phi3-mini's head dim 96, a padded sequence, GQA and a window
@@ -1129,7 +1179,7 @@ def phase_delta(cfg, dev, workdir) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
-             seq_len=64):
+             seq_len=64, factored=False):
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.core import (AZURE_D8S_V3, CheckpointPolicy,
                                   CostAccountant, NoEviction, PeriodicEviction,
@@ -1162,7 +1212,8 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
     policy = (CheckpointPolicy.transparent(30.0) if mode == "transparent"
               else CheckpointPolicy.off())
     coord = RecordingCoordinator(store, policy, clock, time_model=TimeModel())
-    job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=steps, warmup_steps=2),
+    job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=steps, warmup_steps=2,
+                                            factored_second_moment=factored),
                    total_steps=steps, n_stages=2, batch=2, seq_len=seq_len)
     trainer = SpotTrainer(job, coord, pool, clock, step_time_s=10.0,
                           max_sessions=10, device=dev)
@@ -1175,6 +1226,7 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
 def _loop_summary(rep, wall_s) -> dict:
     c = rep.coordinator
     return {"completed": rep.completed, "final_loss": rep.final_loss,
+            "final_metrics": rep.extra["final_metrics"],
             "evictions_seen": rep.evictions_seen, "restores": rep.restores,
             "lost_steps": rep.lost_steps, "steps_executed": rep.steps_executed,
             "periodic_ckpts": c["periodic_ckpts"],
@@ -1197,15 +1249,18 @@ def _need_variant(counted: dict, what: str, dtype: str) -> None:
 
 
 def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
-                    seq_len=64) -> dict:
+                    seq_len=64, factored=False) -> dict:
     import torch
     from repro_torch.kernels import _lib
     base, _c, base_wall = run_loop(cfg, dev, workdir / "base", mode="off",
-                                   evict_s=None, steps=steps, seq_len=seq_len)
+                                   evict_s=None, steps=steps, seq_len=seq_len,
+                                   factored=factored)
     shutil.rmtree(workdir / "base", ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     ev, _c, ev_wall = run_loop(cfg, dev, workdir / "ev", mode="transparent",
-                               evict_s=55.0, steps=steps, seq_len=seq_len)
+                               evict_s=55.0, steps=steps, seq_len=seq_len,
+                               factored=factored)
     launches[name] = dict(_lib.LAUNCHES)
     shutil.rmtree(workdir / "ev", ignore_errors=True)
     res = {"uninterrupted": _loop_summary(base, base_wall),
@@ -1225,10 +1280,18 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
               "flash_attention_dq"):
         need(launches[name][k] > 0, f"the train steps launched no {k} kernel")
     _need_variant(launches[name], name, "bfloat16")
+    if cfg.moe is not None:
+        aux = ev.extra["final_metrics"]["aux"]
+        need(math.isfinite(aux) and aux > 0, f"{name}: aux loss {aux}")
+        need(base.extra["final_metrics"]["aux"] == aux,
+             f"{name}: aux {aux} != uninterrupted "
+             f"{base.extra['final_metrics']['aux']}")
     res["config"] = {"name": cfg.name, "n_layers": cfg.n_layers,
                      "d_model": cfg.d_model, "head_dim": cfg.head_dim,
-                     "batch": 2, "seq_len": seq_len}
+                     "batch": 2, "seq_len": seq_len,
+                     "factored_second_moment": factored}
     res["launches"] = launches[name]
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     return res
 
@@ -1352,7 +1415,8 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     # the float32 path: its own counts, through the float32 kernels
     _lib.reset_launches()
     t0 = time.perf_counter()
-    loss_d, _, grads_d = loss_and_grads(cfg32, params, tok[:, :-1], tok[:, 1:])
+    loss_d, _, _, grads_d = loss_and_grads(cfg32, params, tok[:, :-1],
+                                           tok[:, 1:])
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches["train_gemma3_f32"] = c32 = dict(_lib.LAUNCHES)
@@ -1368,8 +1432,8 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     torch.cuda.empty_cache()
     tok_h = tok.cpu()
     t0 = time.perf_counter()
-    loss_h, _, grads_h = loss_and_grads(cfg32, params_h, tok_h[:, :-1],
-                                        tok_h[:, 1:])
+    loss_h, _, _, grads_h = loss_and_grads(cfg32, params_h, tok_h[:, :-1],
+                                           tok_h[:, 1:])
     host_s = time.perf_counter() - t0
     loss_rel = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
     need(loss_rel <= MODEL_LOSS_TOL,
@@ -1402,22 +1466,26 @@ def phase_train_gemma3(dev, card, launches) -> dict:
 # ---------------------------------------------------------------------------
 
 def _decode_run(params, cfg, prefill_fn, step_fn, prompt, *, keep_at=None,
-                keep_logits=False):
-    """Prefill, then NEW - 1 greedy decode steps, each synchronised and
-    timed. Returns (tokens (B, NEW), prefill s, decode s, the serving state
-    after ``keep_at`` new tokens, every step's logits)."""
+                keep_logits=False, n_new=None, feed=None):
+    """Prefill, then ``n_new`` - 1 greedy decode steps, each synchronised
+    and timed, each fed the token it sampled, or with ``feed`` (B, >=
+    n_new - 1, D) the next frontend embedding. Returns (tokens (B,
+    n_new), prefill s, decode s, the serving state after ``keep_at`` new
+    tokens, every step's logits)."""
     import torch
+    n_new = n_new or NEW
     t0 = time.perf_counter()
     tok, caches, pos = prefill_fn(params, prompt)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     out, logits_all, kept, decode_s = [tok], [], None, 0.0
-    for i in range(NEW - 1):
+    for i in range(n_new - 1):
         if keep_at is not None and len(out) == keep_at:
             kept = {"caches": caches, "cursor": pos + i,
                     "generated": torch.stack(out, dim=1)}
+        x = out[-1][:, None] if feed is None else feed[:, i:i + 1]
         t0 = time.perf_counter()
-        tok, logits, caches = step_fn(params, out[-1][:, None], caches, pos + i)
+        tok, logits, caches = step_fn(params, x, caches, pos + i)
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
         out.append(tok)
@@ -1469,14 +1537,127 @@ def _profile(fn, n: int) -> dict:
             "port_kernels_ms": port}
 
 
-def phase_serve(arch, dev, workdir, card, launches) -> dict:
+def _cut_params(params, cfg, n_layers: int):
+    """The first ``n_layers`` layers of a stacked parameter tree (each
+    segment of the cut config's plan sliced from the full one's), with the
+    embedding, head and final norm: views, nothing copied."""
+    from repro_torch.models import plan_segments
+    segs = plan_segments(cfg.scaled(n_layers=n_layers))
+    out = {k: v for k, v in params.items() if k != "segments"}
+    out["segments"] = [
+        {pos: _slice_tree(tree, seg.n_repeats) for pos, tree in sp.items()}
+        for seg, sp in zip(segs, params["segments"])]
+    return out
+
+
+def _slice_tree(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _config_summary(cfg, params) -> dict:
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    leaves = [t for t in ser.flatten_state(params).values()
+              if isinstance(t, torch.Tensor)]
+    out = {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "vocab_size": cfg.vocab_size,
+           "window": cfg.window, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in leaves),
+           "weights_gb": sum(t.numel() * t.element_size() for t in leaves) / 1e9}
+    if cfg.moe is not None:
+        out["moe"] = {"n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+                      "d_expert": cfg.moe.d_expert,
+                      "n_shared": cfg.moe.n_shared,
+                      "capacity_factor": cfg.moe.capacity_factor,
+                      "dense_prelude_layers": cfg.moe.dense_prelude_layers}
+    return out
+
+
+def _host_copy(params, dev):
+    """The weights on the host by leaf name, and a template to load them
+    back onto the card: the caller drops its device copy before the float32
+    copy lands."""
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.train import state_template_on_device
+    return ({n: t.cpu() for n, t in ser.flatten_state(params).items()},
+            state_template_on_device(params, dev))
+
+
+def _teacher_forcing(what, host, template, cfg32, prompt, n_new, dev,
+                     launches, *, feed=None) -> dict:
+    """Decode against teacher forcing on a float32 copy of ``host``'s
+    weights (emptied as the copy lands on the card): prefill ``prompt``,
+    ``n_new`` - 1 greedy decode steps (fed the sampled token, or ``feed``'s
+    next frame), counted under ``what``_f32 through the CUDA-core forward
+    and flash decode; every step's logits within LOGIT_TOL of the
+    teacher-forced forward over the same sequence, the greedy tokens
+    identical."""
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.kernels import _lib
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import unembed_weights
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    kinds = cfg32.layer_kinds()
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    n_mamba = sum(k == "mamba" for k in kinds)
+    params32 = ser.unflatten_like(template, {
+        n: t.to(dev).to(torch.float32) for n, t in host.items()})
+    host.clear()
+    B, P = prompt.shape[:2]
+    _lib.reset_launches()
+    tok32, _, _, _, logits32 = _decode_run(
+        params32, cfg32,
+        make_prefill(cfg32, cache_len=min(CACHE_LEN, P + n_new), device=dev),
+        make_decode_step(cfg32, device=dev), prompt, keep_logits=True,
+        n_new=n_new, feed=feed)
+    launches[f"{what}_f32"] = c32 = dict(_lib.LAUNCHES)
+    for name, n in {"ssm_scan_f32": n_mamba,
+                    "flash_attention_fwd_cudacore": n_attn,
+                    "decode_attention": n_attn * (n_new - 1)}.items():
+        need(c32[name] == n,
+             f"{what} float32: {c32[name]} {name} launches, expected {n}")
+    _need_variant(c32, f"{what} float32", "float32")
+    with torch.no_grad():
+        rest = tok32[:, :-1] if feed is None else feed[:, :n_new - 1]
+        seq = torch.cat([prompt, rest], dim=1)          # (B, P + n_new - 1)
+        hidden, _ = forward(params32, cfg32, seq, return_hidden=True)
+        tf = hidden[:, P - 1:] @ unembed_weights(params32, cfg32)
+    errs = [max_abs_err(lg, tf[:, i + 1]) for i, lg in enumerate(logits32)]
+    tf_tokens = torch.argmax(tf, dim=-1).to(torch.int32)
+    top2 = torch.topk(tf, 2, dim=-1).values
+    out = {"max_abs_err": max(errs), "tol": LOGIT_TOL,
+           "tokens_identical": bool(torch.equal(tf_tokens, tok32)),
+           "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min()),
+           "batch": B, "prompt": P, "new_tokens": n_new,
+           "n_layers": cfg32.n_layers}
+    need(max(errs) <= LOGIT_TOL,
+         f"{what}: float32 decode logits differ from teacher forcing by "
+         f"{max(errs)}")
+    need(out["tokens_identical"],
+         f"{what}: float32 greedy tokens differ from teacher forcing")
+    del params32, hidden, tf, logits32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(arch, dev, workdir, card, launches, *, tf_cut=None) -> dict:
+    """Serve ``arch`` at its full published config. ``tf_cut`` (a dict of
+    n_layers, batch, prompt, new_tokens and dropless) cuts the float32 copy
+    that decode is held against teacher forcing on; each cut is printed
+    under ``reduced``."""
+    import dataclasses
+
     import torch
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.checkpoint import serialize as ser
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
-    from repro_torch.models import forward, init_params
-    from repro_torch.models.transformer import unembed_weights
+    from repro_torch.models import init_params
     from repro_torch.serve import generate, make_decode_step, make_prefill
     from repro_torch.train import state_template_on_device
 
@@ -1504,10 +1685,7 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     tokens, prefill_s, decode_s, mid, _ = _decode_run(
         params, cfg, prefill_fn, step_fn, prompt, keep_at=SAVE_AT)
     launches[f"serve_{arch}"] = counted = dict(_lib.LAUNCHES)
-    res = {"card": card, "config": {"name": cfg.name, "n_layers": cfg.n_layers,
-                                    "d_model": cfg.d_model,
-                                    "vocab_size": cfg.vocab_size,
-                                    "window": cfg.window, "dtype": cfg.dtype},
+    res = {"card": card, "config": _config_summary(cfg, params),
            "batch": SERVE_B, "prompt": PROMPT, "new_tokens": NEW,
            "cache_len": CACHE_LEN, "prefill_s": prefill_s,
            "prefill_tokens_per_s": SERVE_B * PROMPT / prefill_s,
@@ -1566,47 +1744,107 @@ def phase_serve(arch, dev, workdir, card, launches) -> dict:
     res["resumed_tokens_identical"] = True
     del state, caches, gen
 
-    # decode against teacher forcing, on a float32 copy at the same shapes:
-    # the bf16 weights leave the card before their float32 copy lands
-    cfg32 = cfg.scaled(dtype="float32")
-    host = {n: t.cpu() for n, t in ser.flatten_state(params).items()}
-    template = state_template_on_device(params, dev)
+    # decode against teacher forcing, on a float32 copy at the same shapes
+    # (or at tf_cut's): the bf16 weights leave the card before their
+    # float32 copy lands
+    cut = tf_cut or {}
+    cfg32 = cfg.scaled(dtype="float32", n_layers=cut.get("n_layers",
+                                                         cfg.n_layers))
+    b32, p32, new32 = (cut.get("batch", SERVE_B), cut.get("prompt", PROMPT),
+                       cut.get("new_tokens", NEW))
+    reduced = {}
+    if "n_layers" in cut:
+        params = _cut_params(params, cfg, cut["n_layers"])
+        reduced["n_layers"] = f"{cfg.n_layers} -> {cfg32.n_layers}"
+    if cut.get("dropless"):
+        # a capacity of every group's token count: no (token, k) pair can
+        # drop, so the routed sequence path and the dropless decode path
+        # compute the same function (prefill at 1.25 drops pairs)
+        m = cfg.moe
+        cfg32 = cfg32.scaled(moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        reduced["capacity_factor"] = (
+            f"{m.capacity_factor} -> {m.n_experts}/{m.top_k}: capacity = "
+            "the group's tokens, no drops")
+    if (b32, p32, new32) != (SERVE_B, PROMPT, NEW):
+        reduced.update(batch=f"{SERVE_B} -> {b32}",
+                       prompt=f"{PROMPT} -> {p32}",
+                       new_tokens=f"{NEW} -> {new32}")
+    host, template = _host_copy(params, dev)
     del params
     torch.cuda.empty_cache()
-    params32 = ser.unflatten_like(template, {
-        n: t.to(dev).to(torch.float32) for n, t in host.items()})
-    del host, template
-    # the float32 serving path: its own counts, through the CUDA-core forward
+    res["teacher_forcing"] = dict(_teacher_forcing(
+        f"serve_{arch}", host, template, cfg32, prompt[:b32, :p32], new32,
+        dev, launches), reduced=reduced)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase: serving an arch without token embeddings
+# ---------------------------------------------------------------------------
+
+def phase_embeds(arch, dev, card, launches) -> dict:
+    """Serve ``arch`` (no token embeddings) at its full published config
+    from seeded frontend embeddings: prefill EMB_PROMPT frames, then
+    EMB_NEW - 1 decode steps each fed the next frame's embedding; a
+    float32 copy's decode logits against its teacher-forced logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    need(not cfg.embed_inputs, f"{arch} takes token ids")
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    params = init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    frames = torch.randn((SERVE_B, EMB_PROMPT + EMB_NEW, cfg.d_model),
+                         generator=g, device=dev)
+    prompt, feed = frames[:, :EMB_PROMPT], frames[:, EMB_PROMPT:]
+    cache_len = EMB_PROMPT + EMB_NEW
+    prefill_fn = make_prefill(cfg, cache_len=cache_len, device=dev)
+    step_fn = make_decode_step(cfg, device=dev)
+    tok, caches, pos = prefill_fn(params, prompt[:, :64])     # warm-up
+    step_fn(params, feed[:, :1], caches, pos)
+    torch.cuda.synchronize()
+    del caches
+
+    # the main path: counts reset just before, read just after
     _lib.reset_launches()
-    tok32, _, _, _, logits32 = _decode_run(
-        params32, cfg32, make_prefill(cfg32, cache_len=CACHE_LEN, device=dev),
-        make_decode_step(cfg32, device=dev), prompt, keep_logits=True)
-    launches[f"serve_{arch}_f32"] = c32 = dict(_lib.LAUNCHES)
-    need(c32["ssm_scan_f32"] == n_mamba,
-         f"{arch} float32: {c32['ssm_scan_f32']} float32 scan launches, "
-         f"expected {n_mamba}")
-    need(c32["flash_attention_fwd_cudacore"] == n_attn,
-         f"{arch} float32: {c32['flash_attention_fwd_cudacore']} CUDA-core "
-         f"forward launches, expected {n_attn}")
-    _need_variant(c32, f"{arch} float32", "float32")
-    with torch.no_grad():
-        seq = torch.cat([prompt, tok32[:, :-1]], dim=1)     # (B, PROMPT+NEW-1)
-        hidden, _ = forward(params32, cfg32, seq, return_hidden=True)
-        tf = hidden[:, PROMPT - 1:] @ unembed_weights(params32, cfg32)
-    errs = [max_abs_err(lg, tf[:, i + 1]) for i, lg in enumerate(logits32)]
-    tf_tokens = torch.argmax(tf, dim=-1).to(torch.int32)
-    top2 = torch.topk(tf, 2, dim=-1).values
-    res["teacher_forcing"] = {
-        "max_abs_err": max(errs), "tol": LOGIT_TOL,
-        "tokens_identical": bool(torch.equal(tf_tokens, tok32)),
-        "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min())}
-    need(max(errs) <= LOGIT_TOL,
-         f"{arch}: float32 decode logits differ from teacher forcing by "
-         f"{max(errs)}")
-    need(res["teacher_forcing"]["tokens_identical"],
-         f"{arch}: float32 greedy tokens differ from teacher forcing")
-    del params32, hidden, tf, logits32
+    tokens, prefill_s, decode_s, _, _ = _decode_run(
+        params, cfg, prefill_fn, step_fn, prompt, n_new=EMB_NEW, feed=feed)
+    launches[f"embeds_{arch}"] = counted = dict(_lib.LAUNCHES)
+    res = {"card": card, "config": _config_summary(cfg, params),
+           "batch": SERVE_B, "prompt_frames": EMB_PROMPT,
+           "decode_steps": EMB_NEW - 1, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": SERVE_B * EMB_PROMPT / prefill_s,
+           "decode_s": decode_s,
+           "decode_tokens_per_s": SERVE_B * (EMB_NEW - 1) / decode_s,
+           "launches": counted,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for name, n in {"flash_attention_fwd": n_attn,
+                    "decode_attention": n_attn * (EMB_NEW - 1),
+                    "decode_attention_merge": n_attn * (EMB_NEW - 1)}.items():
+        need(counted[name] == n,
+             f"{arch}: {counted[name]} {name} launches, expected {n}")
+    _need_variant(counted, arch, "bfloat16")
+    need(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+         f"{arch}: tokens out of range")
+    _tok, caches_p, _pos = prefill_fn(params, prompt)
+    res["decode_profile"] = _profile(
+        lambda: step_fn(params, feed[:, :1], caches_p, EMB_PROMPT), 4)
+    del caches_p
+
+    # float32 decode against teacher forcing over the same frames
+    host, template = _host_copy(params, dev)
+    del params
     torch.cuda.empty_cache()
+    res["teacher_forcing"] = _teacher_forcing(
+        f"embeds_{arch}", host, template, cfg.scaled(dtype="float32"), prompt,
+        EMB_NEW, dev, launches, feed=feed)
     return res
 
 
@@ -1730,6 +1968,8 @@ def main() -> int:
                                 "d_model": cfg.d_model}}
     (ROOT / "build").mkdir(exist_ok=True)
     failed = []
+    seconds: dict[str, float] = {}
+    t_run = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
                                      prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
@@ -1753,6 +1993,23 @@ def main() -> int:
                                               card, launches),
             "serve_falcon_mamba": lambda: phase_serve(
                 "falcon_mamba_7b", dev, workdir, card, launches),
+            # the rest of the zoo: an MoE model at full width (its float32
+            # teacher-forcing copy cut to the prelude and two MoE layers,
+            # routed without drops), a dense GQA-4 model with an ungated
+            # squared-ReLU MLP, the MoE backward with the factored second
+            # moment through the spot loops, and an arch fed frontend
+            # embeddings
+            "serve_deepseek_moe": lambda: phase_serve(
+                "deepseek_moe_16b", dev, workdir, card, launches,
+                tf_cut=MOE_TF_CUT),
+            "serve_minitron": lambda: phase_serve(
+                "minitron_8b", dev, workdir, card, launches),
+            "spot_loop_moe": lambda: phase_spot_loop(
+                get_config("deepseek_moe_16b").scaled(n_layers=MOE_LOOP_LAYERS),
+                dev, workdir / "moe", STEPS, launches, name="spot_loop_moe",
+                seq_len=LOOP_S, factored=True),
+            "embeds_musicgen": lambda: phase_embeds(
+                "musicgen_medium", dev, card, launches),
         }
         for phase, run in phases.items():
             t0 = time.perf_counter()
@@ -1765,11 +2022,17 @@ def main() -> int:
                 traceback.print_exc()
                 failed.append(phase)
                 status = f"FAILED: {e}"
-            print(f"phase {phase}: {status} ({time.perf_counter() - t0:.1f} s)",
+            seconds[phase] = time.perf_counter() - t0
+            print(f"phase {phase}: {status} ({seconds[phase]:.1f} s)",
                   flush=True)
             if phase in results:
                 print(json.dumps({"phase": phase, "results": results[phase],
                                   "card": card}, default=float), flush=True)
+    results["phase_seconds"] = seconds
+    results["phases_total_s"] = time.perf_counter() - t_run
+    print(json.dumps({"phase_seconds": seconds,
+                      "phases_total_s": results["phases_total_s"],
+                      "build_s": _lib.build_seconds()}), flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -16,7 +16,12 @@ logits; training), ``prefill`` (the sequence plus caches; serving) and
 differentiable flash-attention kernels (forward, and the dkv and dq kernels
 in backward), the RG-LRU through its scan kernel and Mamba through the
 selective-scan kernel; decode runs attention through the flash-decode
-kernel. MoE layers come with their slice and raise.
+kernel. MoE layers route their tokens through ``moe.moe_block`` on the
+sequence path and evaluate every expert (``moe.moe_block_dense``, exact
+and dropless) in decode; a dense-MLP prelude (DeepSeek-MoE's first layer)
+is its own segment. Archs without token embeddings (``embed_inputs=False``:
+musicgen, llava) take ``(B, S, D)`` frontend embeddings, cast to the
+model's dtype, and always have an ``lm_head``.
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ssm_scan import ssm_scan
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
-from .config import ModelConfig, RGLRUConfig, SSMConfig
+from .config import ModelConfig, MoEConfig, RGLRUConfig, SSMConfig
 
 
 @dataclass(frozen=True)
@@ -46,29 +52,23 @@ class Segment:
 
 
 def plan_segments(cfg: ModelConfig) -> tuple[Segment, ...]:
-    """The reference's segmentation (dense configs: no MoE prelude)."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet")
+    """The reference's segmentation: a dense-MLP prelude segment for MoE
+    configs that have one, then the period's repeats, then its remainder."""
     kinds = list(cfg.layer_kinds())
     segs: list[Segment] = []
+    start = 0
+    if cfg.moe is not None and cfg.moe.dense_prelude_layers:
+        start = cfg.moe.dense_prelude_layers
+        segs.append(Segment(tuple(kinds[:start]), 1, prelude=True))
+    rest = kinds[start:]
     p = len(cfg.block_pattern)
-    n_full = len(kinds) // p
+    n_full = len(rest) // p
     if n_full:
         segs.append(Segment(tuple(cfg.block_pattern), n_full))
-    r = len(kinds) % p
+    r = len(rest) % p
     if r:
-        segs.append(Segment(tuple(kinds[-r:]), 1))
+        segs.append(Segment(tuple(rest[-r:]), 1))
     return tuple(segs)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = set(cfg.layer_kinds()) - {"global", "local", "rglru",
-                                            "mamba"}
-    if unsupported:
-        raise NotImplementedError(
-            f"layer kinds {sorted(unsupported)} are not ported yet")
-    if not cfg.embed_inputs:
-        raise NotImplementedError("only token-embedding inputs are ported")
 
 
 def _kind_window(cfg: ModelConfig, kind: str) -> int:
@@ -93,27 +93,53 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     ``D`` and ``dt_bias`` as constants) but not its numbers:
     ``jax.random`` streams cannot be reproduced, so parity tests carry the
     reference's parameters across with ``train.state_from_numpy``. With tied
-    embeddings there is no ``lm_head`` leaf.
+    embeddings there is no ``lm_head`` leaf; without token embeddings there
+    is no ``embed`` leaf. Every stacked leaf is drawn one repeat at a time,
+    so the float32 draw of a leaf never exists whole (at deepseek-moe-16b's
+    width one expert leaf is 19.9 GB in float32, at minitron-8b's one MLP
+    leaf 8.6 GB). On the meta device nothing is drawn or allocated
+    (``model.param_specs``).
     """
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     f32 = torch.float32
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+
+    def draw(shape, fan_in, dt):
+        w = torch.randn(shape, generator=gen, dtype=f32, device=device)
+        return w.div_(math.sqrt(fan_in)).to(dt)
 
     def dense(shape, fan_in=None, dt=dtype):
+        """normal / sqrt(fan_in); a stacked (n, ...) leaf a repeat at a time"""
         fan_in = fan_in if fan_in is not None else shape[-2]
-        w = torch.randn(shape, generator=gen, dtype=f32, device=device)
-        return (w / math.sqrt(fan_in)).to(dt)
+        if len(shape) == 2:                      # embed, lm_head: not stacked
+            return draw(shape, fan_in, dt)
+        out = torch.empty(shape, dtype=dt, device=device)
+        for r in range(shape[0]):
+            out[r] = draw(shape[1:], fan_in, dt)
+        return out
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=f32, device=device)
 
-    def mlp_params(n):
-        w = {"up": dense((n, D, F_)), "down": dense((n, F_, D))}
+    def mlp_params(n, d_ff):
+        w = {"up": dense((n, D, d_ff)), "down": dense((n, d_ff, D))}
         if cfg.mlp_gated:
-            w["gate"] = dense((n, D, F_))
+            w["gate"] = dense((n, D, d_ff))
+        return w
+
+    def moe_params(n, m: MoEConfig):
+        E, Fe = m.n_experts, m.d_expert
+        w = {"router": dense((n, D, E), dt=f32),
+             "experts": {"up": dense((n, E, D, Fe), D),
+                         "down": dense((n, E, Fe, D), Fe)}}
+        if cfg.mlp_gated:
+            w["experts"]["gate"] = dense((n, E, D, Fe), D)
+        if m.n_shared:
+            w["shared"] = mlp_params(n, m.n_shared * Fe)
         return w
 
     def mamba_params(n, s: SSMConfig):
@@ -160,7 +186,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                         "out": dense((n, W, D)),
                     },
                     "norm2": zeros(n, D),
-                    "mlp": mlp_params(n),
+                    "mlp": mlp_params(n, F_),
                 }
             else:
                 layer = {
@@ -172,12 +198,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                         "wo": dense((n, cfg.q_dim, D)),
                     },
                     "norm2": zeros(n, D),
-                    "mlp": mlp_params(n),
                 }
+                if cfg.moe is not None and not seg.prelude:
+                    layer["moe"] = moe_params(n, cfg.moe)
+                else:
+                    layer["mlp"] = mlp_params(
+                        n, cfg.moe.d_ff_prelude if seg.prelude else F_)
             seg_params[f"pos{pi}"] = layer
         params["segments"].append(seg_params)
-    params["embed"] = dense((cfg.vocab_size, D), fan_in=D)
-    if not cfg.tie_embeddings:
+    if cfg.embed_inputs:
+        params["embed"] = dense((cfg.vocab_size, D), fan_in=D)
+    if not (cfg.tie_embeddings and cfg.embed_inputs):
         params["lm_head"] = dense((D, cfg.vocab_size))
     params["final_norm"] = zeros(D)
     return params
@@ -230,9 +261,22 @@ def _rglru_seq_with_cache(x, w, rcfg: RGLRUConfig):
     return (y * gate) @ w["out"], {"conv": conv_state, "h": h_last}
 
 
+def _channel_mix(x, w: dict, cfg: ModelConfig, *, decode: bool = False):
+    """MLP or MoE residual branch. Returns (delta, aux loss or None). A
+    decode step runs the exact, dropless MoE."""
+    if "moe" not in w:
+        return L.mlp(x, w["mlp"], act=cfg.act, gated=cfg.mlp_gated), None
+    if decode:
+        return MOE.moe_block_dense(x, w["moe"], cfg.moe, act=cfg.act,
+                                   gated=cfg.mlp_gated), None
+    return MOE.moe_block(x, w["moe"], cfg.moe, act=cfg.act,
+                         gated=cfg.mlp_gated)
+
+
 def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
                      collect_cache: bool, cache_len: int | None):
-    """One layer, full sequence. Returns (x, cache or None).
+    """One layer, full sequence. Returns (x, aux loss or None, cache or
+    None).
 
     Attention of both kinds runs through the differentiable flash-attention
     kernels, Mamba through the selective-scan kernel. ``collect_cache``
@@ -246,7 +290,7 @@ def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
             delta, cache = _mamba_seq_with_cache(h, w["mamba"], scfg)
         else:
             delta = SSM.mamba_block(h, w["mamba"], scfg)
-        return x + delta, cache
+        return x + delta, None, cache
     if kind in ("global", "local"):
         B, S, _ = x.shape
         q, k, v = _qkv(h, w["attn"], cfg, kind, positions)
@@ -268,7 +312,8 @@ def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
             delta = RG.recurrent_block(h, w["rec"], rcfg)
         x = x + delta
     h2 = L.rms_norm(x, w["norm2"], eps=cfg.norm_eps)
-    return x + L.mlp(h2, w["mlp"], act=cfg.act, gated=cfg.mlp_gated), cache
+    delta, aux = _channel_mix(h2, w, cfg)
+    return x + delta, aux, cache
 
 
 def _select(tree, r: int):
@@ -286,7 +331,12 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def _embed(params: dict, inputs: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor
+           ) -> torch.Tensor:
+    """Token ids (B,S) through the embedding, or frontend embeddings
+    (B,S,D) cast to the model's dtype (``embed_inputs=False``)."""
+    if not cfg.embed_inputs:
+        return inputs.to(getattr(torch, cfg.dtype))
     # index_select, whose CUDA backward (index_add_) has a deterministic
     # implementation under torch.use_deterministic_algorithms
     x = params["embed"].index_select(0, inputs.reshape(-1).to(torch.int64))
@@ -302,35 +352,40 @@ def unembed_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
 def _sequence(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
               collect_cache: bool, cache_len: int | None):
     """Every layer over the sequence. Returns (x before the final norm,
-    caches stacked per segment and position, or None)."""
-    _check_supported(cfg)
-    x = _embed(params, inputs)
+    the MoE layers' summed aux loss, caches stacked per segment and
+    position, or None)."""
+    x = _embed(params, cfg, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: list[dict] = []
     for seg, seg_params in zip(plan_segments(cfg), params["segments"]):
         per_pos: dict[str, list] = {f"pos{i}": [] for i in range(len(seg.pattern))}
         for r in range(seg.n_repeats):
             for i, kind in enumerate(seg.pattern):
-                x, cache = _apply_block_seq(
+                x, aux, cache = _apply_block_seq(
                     kind, _select(seg_params[f"pos{i}"], r), x, cfg, positions,
                     collect_cache=collect_cache, cache_len=cache_len)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 per_pos[f"pos{i}"].append(cache)
         if collect_cache:
             caches.append({name: _stack(cs) for name, cs in per_pos.items()})
-    return x, (caches if collect_cache else None)
+    return x, aux_total, (caches if collect_cache else None)
 
 
 def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
             return_hidden: bool = False):
-    """Teacher-forced training forward. inputs: token ids (B,S). Returns
-    (logits (B,S,V), aux_loss), or the final-norm output in place of the
-    logits with ``return_hidden`` (the fused unembed+CE owns the head).
+    """Teacher-forced training forward. inputs: token ids (B,S), or
+    embeddings (B,S,D) for archs without token embeddings. Returns
+    (logits (B,S,V), aux_loss summed over the MoE layers), or the
+    final-norm output in place of the logits with ``return_hidden`` (the
+    fused unembed+CE owns the head).
     Every attention layer runs through the differentiable flash attention,
     so its backward is the dkv and dq kernels on the card; every Mamba and
     RG-LRU layer through its scan kernel, differentiated through the plain
     version. The cache-building path is ``prefill``."""
-    x, _ = _sequence(params, cfg, inputs, collect_cache=False, cache_len=None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = _sequence(params, cfg, inputs, collect_cache=False,
+                          cache_len=None)
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     out = x if return_hidden else x @ unembed_weights(params, cfg)
     return out, aux
@@ -344,8 +399,8 @@ def prefill(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     ``cache_len`` > S to leave room for decoded tokens. Only the last
     position is unembedded (the reference slices it from the full logits;
     the value is the same, without a (B,S,V) tensor)."""
-    x, caches = _sequence(params, cfg, inputs, collect_cache=True,
-                          cache_len=cache_len)
+    x, _aux, caches = _sequence(params, cfg, inputs, collect_cache=True,
+                                cache_len=cache_len)
     x = L.rms_norm(x[:, -1:], params["final_norm"], eps=cfg.norm_eps)
     return (x @ unembed_weights(params, cfg))[:, 0], caches, inputs.shape[1]
 
@@ -357,7 +412,6 @@ def prefill(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> list[dict]:
     """Empty caches shaped like prefill output (stacked per segment/pos)."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     caches = []
@@ -409,18 +463,19 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
                                          cfg.rglru or RGLRUConfig())
         x = x + delta
     h2 = L.rms_norm(x, w["norm2"], eps=cfg.norm_eps)
-    return x + L.mlp(h2, w["mlp"], act=cfg.act, gated=cfg.mlp_gated), cache
+    delta, _ = _channel_mix(h2, w, cfg, decode=True)
+    return x + delta, cache
 
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
                 caches: list[dict], pos: int):
-    """One decode step. inputs: token ids (B,1); ``pos`` is the global
-    position being written. Returns (logits (B,V), new_caches); the caches
-    given are not written."""
-    _check_supported(cfg)
+    """One decode step. inputs: token ids (B,1), or embeddings (B,1,D) for
+    archs without token embeddings; ``pos`` is the global position being
+    written. Returns (logits (B,V), new_caches); the caches given are not
+    written."""
     pos = int(pos)
-    x = _embed(params, inputs)
+    x = _embed(params, cfg, inputs)
     new_caches = []
     for seg, seg_params, seg_cache in zip(plan_segments(cfg),
                                           params["segments"], caches):

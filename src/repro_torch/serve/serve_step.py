@@ -25,18 +25,22 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _tokens(x, device: torch.device) -> torch.Tensor:
+def _inputs(x, device: torch.device) -> torch.Tensor:
+    """Token ids, or frontend embeddings for archs without token
+    embeddings (the model casts them to its dtype), on ``device``."""
     t = torch.from_numpy(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
     return t.to(device)
 
 
 def make_prefill(cfg: ModelConfig, *, cache_len: int | None = None,
                  device=None):
-    """Returns prefill_fn(params, inputs) -> (tokens (B,), caches, pos)."""
+    """Returns prefill_fn(params, inputs) -> (tokens (B,), caches, pos);
+    inputs are token ids (B,S), or embeddings (B,S,D) where
+    ``cfg.embed_inputs`` is false."""
     dev = resolve_device(device)
 
     def prefill_fn(params, inputs):
-        last_logits, caches, pos = prefill(params, cfg, _tokens(inputs, dev),
+        last_logits, caches, pos = prefill(params, cfg, _inputs(inputs, dev),
                                            cache_len=cache_len)
         return sample_greedy(last_logits), caches, pos
     return prefill_fn
@@ -44,11 +48,12 @@ def make_prefill(cfg: ModelConfig, *, cache_len: int | None = None,
 
 def make_decode_step(cfg: ModelConfig, *, device=None):
     """Returns serve_step(params, inputs, caches, pos) -> (tokens (B,),
-    logits (B,V), new_caches)."""
+    logits (B,V), new_caches); inputs are token ids (B,1), or embeddings
+    (B,1,D) where ``cfg.embed_inputs`` is false."""
     dev = resolve_device(device)
 
     def serve_step(params, inputs, caches, pos):
-        logits, new_caches = decode_step(params, cfg, _tokens(inputs, dev),
+        logits, new_caches = decode_step(params, cfg, _inputs(inputs, dev),
                                          caches, pos)
         return sample_greedy(logits), logits, new_caches
     return serve_step
@@ -56,8 +61,11 @@ def make_decode_step(cfg: ModelConfig, *, device=None):
 
 def generate(params, cfg: ModelConfig, prompt, n_tokens: int, *,
              cache_len: int | None = None, device=None) -> torch.Tensor:
-    """Greedy generation: prefill the prompt (B,S), then decode. Returns
-    (B, n_tokens) int32 tokens on ``device``."""
+    """Greedy generation: prefill the prompt (B,S) of token ids, then
+    decode, feeding each sampled token back. Returns (B, n_tokens) int32
+    tokens on ``device``. Token-only, as the reference's: an arch without
+    token embeddings is served through ``make_prefill`` and
+    ``make_decode_step`` with its frontend's embeddings."""
     S = prompt.shape[1]
     cache_len = cache_len or (S + n_tokens)
     pre = make_prefill(cfg, cache_len=cache_len, device=device)

@@ -86,26 +86,40 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0,
     }
 
 
-def batch_to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def batch_to_device(batch: dict, device, cfg: ModelConfig) -> dict:
+    """Host batch arrays as tensors on ``device``. Frontend embeddings
+    (floating inputs) land in ``cfg``'s dtype, the one the model casts
+    them to."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        dtype = getattr(torch, cfg.dtype) if t.is_floating_point() else None
+        out[k] = t.to(device, dtype=dtype)
+    return out
+
+
+def _aux_weight(cfg: ModelConfig) -> float:
+    return cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
 
 
 def loss_and_grads(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
                    labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
-                                                  dict]:
-    """The train step's loss (mean cross-entropy), aux loss and gradients
-    (a tree like ``params``): the forward with the hidden state, then the
-    fused unembed + cross-entropy, differentiated."""
+                                                  torch.Tensor, dict]:
+    """The train step's loss, its mean cross-entropy, the MoE aux loss and
+    the gradients (a tree like ``params``) of ``ce + aux_w * aux``
+    (``aux_w`` the config's ``aux_loss_weight``, 0 without MoE): the
+    forward with the hidden state, then the fused unembed + cross-entropy,
+    differentiated."""
     named = ser.flatten_state(params)
     leaves = {n: p.detach().requires_grad_(True) for n, p in named.items()}
     with torch.enable_grad():
         tree = ser.unflatten_like(params, leaves)
         hidden, aux = forward(tree, cfg, inputs, return_hidden=True)
         ce = fused_unembed_xent(hidden, unembed_weights(tree, cfg), labels)
-        grads = torch.autograd.grad(ce, list(leaves.values()))
-    return (ce.detach(), aux, ser.unflatten_like(params,
-                                                 dict(zip(leaves, grads))))
+        loss = ce + _aux_weight(cfg) * aux
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (loss.detach(), ce.detach(), aux.detach(),
+            ser.unflatten_like(params, dict(zip(leaves, grads))))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
@@ -113,8 +127,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state["params"]
-        loss, aux, grads = loss_and_grads(cfg, params, batch["inputs"],
-                                          batch["labels"])
+        loss, ce, aux, grads = loss_and_grads(cfg, params, batch["inputs"],
+                                              batch["labels"])
         new_params, new_opt, opt_metrics = adamw_update(
             grads, state["opt"], params, opt_cfg)
         new_state = {
@@ -124,7 +138,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
             "rng": state["rng"],
             "data": {"next_batch_index": state["data"]["next_batch_index"] + 1},
         }
-        metrics = {"loss": loss, "ce": loss, "aux": aux, **opt_metrics}
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **opt_metrics}
         return new_state, metrics
 
     return train_step

@@ -91,11 +91,10 @@ class SpotTrainer:
         self.step_time_s = step_time_s
         self.max_sessions = max_sessions
         cfg = job.cfg
-        if not cfg.embed_inputs:
-            raise NotImplementedError("frontend-embedding archs are not ported yet")
         self.pipeline = TokenPipeline(
             vocab_size=cfg.vocab_size, batch=job.batch, seq_len=job.seq_len,
-            seed=job.seed)
+            seed=job.seed,
+            embed_dim=None if cfg.embed_inputs else cfg.d_model)
         self._step_fn = make_train_step(cfg, job.opt)
 
     # -----------------------------------------------------------------------
@@ -130,6 +129,7 @@ class SpotTrainer:
         sessions = 0
         last_session_max_step = 0
         final_loss = float("nan")
+        metrics: dict = {}
         template = state_template(self._fresh_state())
         self.pool.start()
         completed = False
@@ -160,7 +160,8 @@ class SpotTrainer:
                     break
                 # the host-side cursor mirrors state["data"]["next_batch_index"]
                 batch = batch_to_device(
-                    self.pipeline.batch_at(pstate.next_batch_index), self.device)
+                    self.pipeline.batch_at(pstate.next_batch_index),
+                    self.device, job.cfg)
                 t0 = clock.now()
                 state, metrics = self._step_fn(state, batch)
                 final_loss = float(metrics["loss"])     # syncs the step
@@ -242,5 +243,7 @@ class SpotTrainer:
                 "mttr_mean_s": st.mttr_mean_s,
                 "mttr_samples": list(st.mttr_samples),
             },
-            extra={"provider": self.coord.provider.name},
+            extra={"provider": self.coord.provider.name,
+                   # the last step's loss, ce and aux
+                   "final_metrics": {k: float(v) for k, v in metrics.items()}},
         )

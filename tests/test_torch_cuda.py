@@ -335,6 +335,11 @@ FLASH_GPU_CASES = [
     (2, 136, 4, 1, 128, 0, torch.bfloat16),
     (2, 320, 4, 2, 96, 100, torch.bfloat16),
     (1, 448, 2, 1, 256, 200, torch.bfloat16),
+    # the zoo's head layouts: GQA groups of 6 (grok-1), 7 (llava-next) and
+    # 12 (command-r-plus) at hd 128, and musicgen's 24 heads of 64 (MHA)
+    *[(1, 256, H, 8, 128, 0, dt) for H in (48, 56, 96)
+      for dt in (torch.bfloat16, torch.float32)],
+    *[(2, 256, 24, 24, 64, 0, dt) for dt in (torch.bfloat16, torch.float32)],
 ]
 
 
@@ -449,6 +454,13 @@ DECODE_GPU_CASES = [
       for vl in (1, 63, 64, 65, 129, 2047, 2048)],
     *[(4, 32, 32, 96, 2048, vl, torch.float32) for vl in (65, 129, 2047)],
     (4, 32, 32, 96, 2001, 2001, torch.float32),
+    # the zoo's head layouts at the served shapes: GQA groups of 6, 7 and
+    # 12 at hd 128, and 24 heads of 64 (MHA)
+    *[(4, H, 8, 128, 2048, vl, torch.bfloat16) for H in (48, 56, 96)
+      for vl in (1, 65, 1985, 2048)],
+    *[(4, H, 8, 128, 2001, 2001, torch.float32) for H in (48, 56, 96)],
+    *[(4, 24, 24, 64, 2048, vl, torch.bfloat16) for vl in (1, 65, 1985, 2048)],
+    (4, 24, 24, 64, 2001, 2001, torch.float32),
 ]
 
 
@@ -881,3 +893,104 @@ def test_backward_and_scan_kernels_refuse_bad_operands(cuda):
     args = ssm_inputs(1, 8, 32, torch.float16, cuda)
     with pytest.raises(TypeError, match="dtype"):
         ssm_scan(*args)
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer on the card (plain PyTorch around the attention kernels)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic(cuda):
+    """set_deterministic() for one test, the previous settings restored."""
+    from repro_torch.device import set_deterministic
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    set_deterministic()
+    try:
+        yield cuda
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+        torch.backends.cudnn.allow_tf32 = before[2]
+
+
+def test_moe_blocks_on_the_card_match_the_host(deterministic):
+    """moe_block (routed, with capacity drops) and moe_block_dense at
+    deepseek-moe-16b's width (d_model 2048, 64 experts of 1408, top-6, 2
+    shared), a few tokens, float32: the card against the same function on
+    the host, to 1e-4 of the output's largest element (float32 sums of
+    2048 and 1408 terms in another order); the aux loss to 1e-5
+    relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek_moe_16b")
+    m, D, E, Fe = cfg.moe, cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    g = torch.Generator(device=deterministic).manual_seed(0)
+
+    def w(*shape, fan_in):
+        return torch.randn(shape, generator=g, device=deterministic) / fan_in ** 0.5
+    wd = {"router": w(D, E, fan_in=D),
+          "experts": {"up": w(E, D, Fe, fan_in=D), "gate": w(E, D, Fe, fan_in=D),
+                      "down": w(E, Fe, D, fan_in=Fe)},
+          "shared": {"up": w(D, 2 * Fe, fan_in=D), "gate": w(D, 2 * Fe, fan_in=D),
+                     "down": w(2 * Fe, D, fan_in=2 * Fe)}}
+    wh = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+              else v.cpu()) for k, v in wd.items()}
+    x = w(2, 6, D, fan_in=1)
+    y, aux = moe.moe_block(x, wd, m, act="silu", gated=True)
+    yh, auxh = moe.moe_block(x.cpu(), wh, m, act="silu", gated=True)
+    slot, _, _, C = moe.top_k_routing(
+        (x.cpu().reshape(1, 12, D) @ wh["router"]), m)
+    assert bool((slot == E * C).any()), "no pair overflowed: no drop tested"
+    scale = float(yh.abs().max())
+    assert float((y.cpu() - yh).abs().max()) <= 1e-4 * scale
+    torch.testing.assert_close(aux.cpu(), auxh, rtol=1e-5, atol=0)
+    yd = moe.moe_block_dense(x[:, :1], wd, m, act="silu", gated=True)
+    ydh = moe.moe_block_dense(x[:, :1].cpu(), wh, m, act="silu", gated=True)
+    assert float((yd.cpu() - ydh).abs().max()) <= 1e-4 * float(ydh.abs().max())
+
+
+def test_moe_train_steps_repeat_bit_for_bit(deterministic):
+    """Two bf16 train steps of a small deepseek-shaped MoE model (a dense
+    prelude, one MoE layer, hd 64 through the flash kernels, the factored
+    second moment) give the same state and metrics, bit for bit, when run
+    again from the same state: the routing's sort, gathers and their
+    scatter-add backward are deterministic on the card."""
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.configs import get_config
+    from repro_torch.models import MoEConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_config("deepseek_moe_16b").scaled(
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+        vocab_size=1024,
+        moe=MoEConfig(n_experts=16, top_k=4, d_expert=128, n_shared=1,
+                      dense_prelude_layers=1, d_ff_prelude=512))
+    opt = AdamWConfig(factored_second_moment=True, total_steps=4,
+                      warmup_steps=1)
+    step = make_train_step(cfg, opt)
+    g = torch.Generator(device=deterministic).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 257), generator=g,
+                        device=deterministic, dtype=torch.int32)
+
+    def run():
+        state = init_train_state(cfg, opt, seed=0, device=deterministic)
+        before = _lib.LAUNCHES["flash_attention_dq"]
+        out = []
+        for i in range(2):
+            state, metrics = step(state, {"inputs": tok[i, :, :-1],
+                                          "labels": tok[i, :, 1:]})
+            out.append(metrics)
+        assert _lib.LAUNCHES["flash_attention_dq"] == before + 4
+        return state, out
+    s1, m1 = run()
+    s2, m2 = run()
+    assert float(m1[-1]["aux"]) > 0
+    for a, b in zip(m1, m2):
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            assert same_bits(a[k], b[k]), k
+    f1, f2 = ser.flatten_state(s1), ser.flatten_state(s2)
+    assert any(n.endswith("/row") for n in f1)
+    for n in f1:
+        assert same_bits(f1[n], f2[n]), n

@@ -271,10 +271,17 @@ def test_layers_match_reference_pieces():
         rtol=1e-5, atol=1e-6)
 
 
-def test_unported_paths_raise():
+def test_once_unported_paths_resolve():
+    """The MoE archs and the factored second moment, refused by earlier
+    slices, now resolve: grok-1's config, and a {row, col} pair of float32
+    means for a 64 x 64 leaf (a vector stays dense)."""
     from repro_torch.configs import get_config
     from repro_torch.optim import init_opt_state
-    with pytest.raises(NotImplementedError):
-        get_config("grok1_314b")
-    with pytest.raises(NotImplementedError):
-        init_opt_state({"w": torch.zeros(64, 64)}, factored=True)
+    assert get_config("grok1_314b").moe.n_experts == 8
+    st = init_opt_state({"w": torch.zeros(64, 64), "b": torch.zeros(64)},
+                        factored=True)
+    assert set(st["nu"]["w"]) == {"row", "col"}
+    assert tuple(st["nu"]["w"]["row"].shape) == (64,)
+    assert tuple(st["nu"]["w"]["col"].shape) == (64,)
+    assert st["nu"]["w"]["row"].dtype == torch.float32
+    assert tuple(st["nu"]["b"].shape) == (64,)

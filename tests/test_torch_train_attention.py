@@ -230,7 +230,8 @@ def test_loss_and_grads_is_the_train_steps_gradient():
     state = state_from_numpy(to_numpy(jstate), device="cpu")
     rng = np.random.default_rng(2)
     tok = torch.from_numpy(rng.integers(0, tc.vocab_size, (B, S + 1)).astype(np.int32))
-    loss, _aux, grads = loss_and_grads(tc, state["params"], tok[:, :-1], tok[:, 1:])
+    loss, _ce, _aux, grads = loss_and_grads(tc, state["params"], tok[:, :-1],
+                                            tok[:, 1:])
     new, m = make_train_step(tc, AdamWConfig())(
         state, {"inputs": tok[:, :-1], "labels": tok[:, 1:]})
     assert torch.equal(loss, m["loss"])
