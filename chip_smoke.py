@@ -20,10 +20,10 @@ seeded weights:
                   the flash-attention backward (dkv, dq) at the training
                   shapes.
                   The forward, the dkv and the dq pass have two variants,
-                  chosen by dtype: bfloat16 on the tensor cores (wgmma);
-                  float32 forward on the CUDA cores, float32 dkv and dq on
-                  the tensor cores in 3xTF32 (mma.sync); each is held,
-                  timed (with its TFLOP/s) and listed as a row of its own
+                  chosen by dtype, both on the tensor cores: bfloat16
+                  through wgmma, float32 in 3xTF32 (mma.sync); each is
+                  held, timed (with its TFLOP/s) and listed as a row of its
+                  own
   delta           delta saves of the full-width state at 1% and 5% block
                   churn: exact d2h accounting, bit-identical restore; one
                   save's fingerprint launches under the profiler
@@ -64,8 +64,8 @@ Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
 flash forward, dkv and dq launches must have gone through the wgmma
 variants, and the float32 runs (the one-period gradient check, the float32
-decode against teacher forcing) through the float32 ones: the CUDA-core
-forward and the 3xTF32 dkv and dq. Prints the
+decode against teacher forcing) through the float32 ones: the 3xTF32
+forward, dkv and dq. Prints the
 card's name and power limit, ``ptxas``'s registers, spills and warnings,
 one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if any
@@ -101,6 +101,7 @@ OPS32_PER_S = 67e12            # H100 SXM 32-bit rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
                                # (NVIDIA H100 data sheet, no sparsity)
 TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
+TF32X3 = "3xTF32 (mma.sync, tensor cores)"   # the float32 kernels' route
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 CHUNK = 1 << 20
 LAYERS = 2                     # phi3-mini at full width, cut in depth
@@ -477,13 +478,14 @@ def _sdpa(q, k, v, **kw):
                              enable_gqa=True, **kw)
 
 
-def _fwd_times(q, k, v, window, rate) -> dict:
+def _fwd_times(q, k, v, window, rate, products: int = 1) -> dict:
     """Device times of the flash forward on causal (optionally windowed)
     self-attention operands, its plain version and SDPA (causal flag, or a
     band mask for a window), with the bound and the achieved rate. Each
     bound counts the work this data needs: the unmasked (q, k) pairs at 4
-    FLOPs per pair and head dimension (QK^T and PV) over ``rate``, or the
-    bytes of q, k, v read and o, lse written."""
+    FLOPs per pair and head dimension (QK^T and PV), ``products`` tensor
+    products each (3 in 3xTF32), over ``rate``, or the bytes of q, k, v
+    read and o, lse written. The rate reported counts each product once."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
@@ -503,7 +505,8 @@ def _fwd_times(q, k, v, window, rate) -> dict:
     return dict(ms=ms,
                 plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=True,
                                                        window=window), reps=5),
-                library_ms=time_ms(lib), bound=bound(nbytes, flops, rate),
+                library_ms=time_ms(lib),
+                bound=bound(nbytes, products * flops, rate),
                 tflops=flops / ms / 1e9)
 
 
@@ -565,17 +568,17 @@ def serving_kernels(dev) -> dict:
             lse_max_abs_err=max_abs_err(lse, want_lse), tol=ATT_TOL,
             bf16_rtol=BF16_RTOL, shape=[B, S, H, KV, hd], window=window,
             dtype="bfloat16", kernel="wgmma (tensor cores)")
-        # the CUDA-core float32 kernel on the same values widened: held
-        # (no bf16 rounding to hide a fault in) and timed
+        # the 3xTF32 float32 kernel on the same values widened: held (no
+        # bf16 rounding to hide a fault in) and timed
         a32 = tuple(t.to(f32) for t in (q, k, v))
         o32, lse32 = flash_attention_fwd(*a32, True, window)
         want32, wl32 = attention_ref(*a32, causal=True, window=window)
         err32 = _att_check(what + " float32", o32, want32, lse32, wl32)
         del o32, lse32, want32, wl32
         flash32[name] = dict(
-            _fwd_times(*a32, window, OPS32_PER_S), max_abs_err=err32,
+            _fwd_times(*a32, window, TF32_FLOPS_PER_S, 3), max_abs_err=err32,
             tol=ATT_TOL, shape=[B, S, H, KV, hd], window=window,
-            dtype="float32", kernel="CUDA cores")
+            dtype="float32", kernel=TF32X3)
         del a32, o, lse
     # the other served models' heads at a causal prefill: phi3-mini's (32
     # of 96), deepseek-moe's (16 of 128, MHA) and minitron's (32 of 128, 8
@@ -602,15 +605,15 @@ def serving_kernels(dev) -> dict:
         o32, lse32 = flash_attention_fwd(*a32, True, 0)
         want32, wl32 = attention_ref(*a32, causal=True)
         flash32[name] = dict(
-            _fwd_times(*a32, 0, OPS32_PER_S),
+            _fwd_times(*a32, 0, TF32_FLOPS_PER_S, 3),
             max_abs_err=_att_check(f"flash_attention {name} float32", o32,
                                    want32, lse32, wl32),
             tol=ATT_TOL, shape=[Bf, Sf, Hf, KVf, hdf], window=0,
-            dtype="float32", kernel="CUDA cores")
+            dtype="float32", kernel=TF32X3)
         del qp, kp, vp, o, lse, want, a32, o32, lse32, want32, wl32
     # the rows: the global layer's case; the others beside it
     out["flash_attention_fwd_wgmma"] = dict(flash["global"], cases=flash)
-    out["flash_attention_fwd_cudacore"] = dict(flash32["global"], cases=flash32)
+    out["flash_attention_fwd_tf32x3"] = dict(flash32["global"], cases=flash32)
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -840,7 +843,7 @@ def training_kernels(dev) -> dict:
         # products (3xTF32) over the TF32 tensor-core rate
         common32 = dict(library_ms=lib32, tol=GRAD_TOL, shape=[B, S, H, KV, hd],
                         window=window, dtype="float32",
-                        kernel="3xTF32 (mma.sync, tensor cores)",
+                        kernel=TF32X3,
                         library="SDPA backward (both passes)")
         dkv32_cases[name] = dict(
             ms=ms32, plain_ms=time_ms(lambda: attention_dkv_ref(
@@ -1190,13 +1193,22 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
 
     class RecordingCoordinator(SpotOnCoordinator):
         """Keeps the state handed to each urgent save and the last restore
-        (the step is functional, so a held state stays unchanged)."""
+        (the step is functional, so a held state stays unchanged), and
+        each urgent save's step, notice budget (the virtual clock's seconds
+        left, which the save waits for in real seconds), wall time on the
+        host's clock and whether it committed."""
         urgent_state = None
         restored = None
 
         def _save_termination(self, step, state, deadline):
             self.urgent_state = state
-            return super()._save_termination(step, state, deadline)
+            budget = deadline - self.clock.now()
+            t0 = time.perf_counter()
+            ok = super()._save_termination(step, state, deadline)
+            self.urgent_saves.append({"step": step, "budget_s": budget,
+                                      "wall_s": time.perf_counter() - t0,
+                                      "committed": ok})
+            return ok
 
         def restore_latest(self, template, **kw):
             self.restored = super().restore_latest(template, **kw)
@@ -1212,6 +1224,7 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
     policy = (CheckpointPolicy.transparent(30.0) if mode == "transparent"
               else CheckpointPolicy.off())
     coord = RecordingCoordinator(store, policy, clock, time_model=TimeModel())
+    coord.urgent_saves = []
     job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=steps, warmup_steps=2,
                                             factored_second_moment=factored),
                    total_steps=steps, n_stages=2, batch=2, seq_len=seq_len)
@@ -1223,7 +1236,7 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
     return rep, coord, time.perf_counter() - t0
 
 
-def _loop_summary(rep, wall_s) -> dict:
+def _loop_summary(rep, coord, wall_s) -> dict:
     c = rep.coordinator
     return {"completed": rep.completed, "final_loss": rep.final_loss,
             "final_metrics": rep.extra["final_metrics"],
@@ -1232,13 +1245,14 @@ def _loop_summary(rep, wall_s) -> dict:
             "periodic_ckpts": c["periodic_ckpts"],
             "termination_ckpts": c["termination_ckpts"],
             "d2h_bytes": c["d2h_bytes"], "save_stall_s": c["save_stall_s"],
-            "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s}
+            "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s,
+            "urgent_saves": coord.urgent_saves}
 
 
 def _need_variant(counted: dict, what: str, dtype: str) -> None:
     """Every flash forward, dkv and dq launch of a run went through the
     variants ``dtype`` selects (``flash_attention.VARIANTS``): bfloat16 all
-    on wgmma; float32 the CUDA-core forward and the 3xTF32 dkv and dq."""
+    on wgmma; float32 all in 3xTF32."""
     import torch
     from repro_torch.kernels.flash_attention import VARIANTS
     for p, variant in VARIANTS[getattr(torch, dtype)].items():
@@ -1252,23 +1266,24 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
                     seq_len=64, factored=False) -> dict:
     import torch
     from repro_torch.kernels import _lib
-    base, _c, base_wall = run_loop(cfg, dev, workdir / "base", mode="off",
+    base, base_coord, base_wall = run_loop(cfg, dev, workdir / "base", mode="off",
                                    evict_s=None, steps=steps, seq_len=seq_len,
                                    factored=factored)
     shutil.rmtree(workdir / "base", ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
-    ev, _c, ev_wall = run_loop(cfg, dev, workdir / "ev", mode="transparent",
+    ev, ev_coord, ev_wall = run_loop(cfg, dev, workdir / "ev", mode="transparent",
                                evict_s=55.0, steps=steps, seq_len=seq_len,
                                factored=factored)
     launches[name] = dict(_lib.LAUNCHES)
     shutil.rmtree(workdir / "ev", ignore_errors=True)
-    res = {"uninterrupted": _loop_summary(base, base_wall),
-           "evicted": _loop_summary(ev, ev_wall)}
+    res = {"uninterrupted": _loop_summary(base, base_coord, base_wall),
+           "evicted": _loop_summary(ev, ev_coord, ev_wall)}
     need(base.completed and ev.completed, "a spot loop did not complete")
     need(ev.evictions_seen >= 1 and ev.restores >= 1,
          "the evicted run saw no eviction or no restore")
-    need(ev.lost_steps == 0, f"the evicted run lost {ev.lost_steps} steps")
+    need(ev.lost_steps == 0, f"the evicted run lost {ev.lost_steps} steps "
+                             f"(urgent saves: {ev_coord.urgent_saves})")
     need(math.isfinite(base.final_loss), "non-finite loss")
     need(ev.final_loss == base.final_loss,
          f"final loss {ev.final_loss!r} != uninterrupted {base.final_loss!r}")
@@ -1307,7 +1322,7 @@ def phase_spot_loop_int8(cfg, dev, workdir, steps, launches) -> dict:
                                 quantize_moments=True)
     launches["spot_loop_int8"] = dict(_lib.LAUNCHES)
     shutil.rmtree(workdir / "q", ignore_errors=True)
-    res = _loop_summary(rep, wall)
+    res = _loop_summary(rep, coord, wall)
     need(rep.completed and rep.evictions_seen >= 1 and rep.restores >= 1,
          "the int8 loop did not complete through an eviction and a restore")
     need(rep.lost_steps == 0, f"the int8 loop lost {rep.lost_steps} steps")
@@ -1421,7 +1436,7 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     card_s = time.perf_counter() - t0
     launches["train_gemma3_f32"] = c32 = dict(_lib.LAUNCHES)
     n_attn32 = sum(k in ("global", "local") for k in cfg32.layer_kinds())
-    for k in ("flash_attention_fwd_cudacore", "flash_attention_dkv_tf32x3",
+    for k in ("flash_attention_fwd_tf32x3", "flash_attention_dkv_tf32x3",
               "flash_attention_dq_tf32x3"):
         need(c32[k] == n_attn32, f"train_gemma3 float32: {c32[k]} {k} "
                                  f"launches, expected {n_attn32}")
@@ -1591,10 +1606,11 @@ def _teacher_forcing(what, host, template, cfg32, prompt, n_new, dev,
     """Decode against teacher forcing on a float32 copy of ``host``'s
     weights (emptied as the copy lands on the card): prefill ``prompt``,
     ``n_new`` - 1 greedy decode steps (fed the sampled token, or ``feed``'s
-    next frame), counted under ``what``_f32 through the CUDA-core forward
-    and flash decode; every step's logits within LOGIT_TOL of the
-    teacher-forced forward over the same sequence, the greedy tokens
-    identical."""
+    next frame), counted under ``what``_f32 through the 3xTF32 forward
+    and flash decode (the prefill's wall time kept, and with attention
+    layers a second prefill's profile); every step's logits within
+    LOGIT_TOL of the teacher-forced forward over the same sequence, the
+    greedy tokens identical."""
     import torch
     from repro_torch.checkpoint import serialize as ser
     from repro_torch.kernels import _lib
@@ -1609,19 +1625,27 @@ def _teacher_forcing(what, host, template, cfg32, prompt, n_new, dev,
         n: t.to(dev).to(torch.float32) for n, t in host.items()})
     host.clear()
     B, P = prompt.shape[:2]
+    prefill_fn = make_prefill(cfg32, cache_len=min(CACHE_LEN, P + n_new),
+                              device=dev)
     _lib.reset_launches()
-    tok32, _, _, _, logits32 = _decode_run(
-        params32, cfg32,
-        make_prefill(cfg32, cache_len=min(CACHE_LEN, P + n_new), device=dev),
-        make_decode_step(cfg32, device=dev), prompt, keep_logits=True,
-        n_new=n_new, feed=feed)
+    tok32, prefill32_s, _, _, logits32 = _decode_run(
+        params32, cfg32, prefill_fn, make_decode_step(cfg32, device=dev),
+        prompt, keep_logits=True, n_new=n_new, feed=feed)
     launches[f"{what}_f32"] = c32 = dict(_lib.LAUNCHES)
     for name, n in {"ssm_scan_f32": n_mamba,
-                    "flash_attention_fwd_cudacore": n_attn,
+                    "flash_attention_fwd_tf32x3": n_attn,
                     "decode_attention": n_attn * (n_new - 1)}.items():
         need(c32[name] == n,
              f"{what} float32: {c32[name]} {name} launches, expected {n}")
     _need_variant(c32, f"{what} float32", "float32")
+    # where the copy has attention layers, one more prefill under the
+    # profiler, after the counts were read: the device's busy time and the
+    # float32 forward's share of it
+    prefill_profile = None
+    if n_attn:
+        prof = _profile(lambda: prefill_fn(params32, prompt), 1)
+        prefill_profile = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                "port_kernels_ms")}
     with torch.no_grad():
         rest = tok32[:, :-1] if feed is None else feed[:, :n_new - 1]
         seq = torch.cat([prompt, rest], dim=1)          # (B, P + n_new - 1)
@@ -1634,7 +1658,8 @@ def _teacher_forcing(what, host, template, cfg32, prompt, n_new, dev,
            "tokens_identical": bool(torch.equal(tf_tokens, tok32)),
            "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min()),
            "batch": B, "prompt": P, "new_tokens": n_new,
-           "n_layers": cfg32.n_layers}
+           "n_layers": cfg32.n_layers, "prefill_s": prefill32_s,
+           "prefill_profile": prefill_profile}
     need(max(errs) <= LOGIT_TOL,
          f"{what}: float32 decode logits differ from teacher forcing by "
          f"{max(errs)}")
@@ -1891,13 +1916,12 @@ KERNELS = {
                  "src/repro/kernels/quantize/quantize.py:53"),
     "dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
                    "src/repro/kernels/quantize/quantize.py:62"),
-    # rows 5, 6 and 7 have two variants, chosen by dtype: bfloat16 on the
-    # tensor cores (wgmma); float32 forward on the CUDA cores, float32 dkv
-    # and dq on the tensor cores in 3xTF32 (mma.sync)
+    # rows 5, 6 and 7 have two variants, chosen by dtype, both on the
+    # tensor cores: bfloat16 through wgmma, float32 in 3xTF32 (mma.sync)
     "flash_attention_fwd_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:65"),
-    "flash_attention_fwd_cudacore": (
+    "flash_attention_fwd_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:65"),
     "flash_attention_dkv_wgmma": (
@@ -1957,7 +1981,7 @@ def main() -> int:
                for p in ("fwd", "dkv", "dq") for hd in _lib.HEAD_DIMS}
     tc_smem.update({
         f"{p}_tf32x3_hd{hd}": getattr(lib, f"spot_flash_attention_{p}_tf32x3_smem")(hd)
-        for p in ("dkv", "dq") for hd in _lib.HEAD_DIMS})
+        for p in ("fwd", "dkv", "dq") for hd in _lib.HEAD_DIMS})
     print(json.dumps({"ptxas": ptxas, "tensor_core_dynamic_smem": tc_smem,
                       "ptxas_warnings": _lib.ptxas_warnings()}), flush=True)
     cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)

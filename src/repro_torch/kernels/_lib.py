@@ -55,11 +55,10 @@ LAUNCHES: dict[str, int] = {"fingerprint": 0,
                             "rglru_scan": 0,
                             # the two variants of the forward, the dkv and
                             # the dq pass (each launch counts under its pass
-                            # too): bfloat16 on the tensor cores (wgmma);
-                            # float32 forward on the CUDA cores, float32 dkv
-                            # and dq on the tensor cores in 3xTF32
+                            # too), both on the tensor cores: bfloat16
+                            # through wgmma, float32 in 3xTF32 (mma.sync)
                             "flash_attention_fwd_wgmma": 0,
-                            "flash_attention_fwd_cudacore": 0,
+                            "flash_attention_fwd_tf32x3": 0,
                             "flash_attention_dkv_wgmma": 0,
                             "flash_attention_dkv_tf32x3": 0,
                             "flash_attention_dq_wgmma": 0,
@@ -104,10 +103,11 @@ _SIGNATURES = {
     "spot_flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P),
     # (hd) -> dynamic shared memory bytes of the tensor-core kernels: bf16
-    # (wgmma) and the float32 backward (3xTF32)
+    # (wgmma) and float32 (3xTF32)
     "spot_flash_attention_fwd_wgmma_smem": (_I32,),
     "spot_flash_attention_dkv_wgmma_smem": (_I32,),
     "spot_flash_attention_dq_wgmma_smem": (_I32,),
+    "spot_flash_attention_fwd_tf32x3_smem": (_I32,),
     "spot_flash_attention_dkv_tf32x3_smem": (_I32,),
     "spot_flash_attention_dq_tf32x3_smem": (_I32,),
     # (q, k, v, partials, B, S, H, KV, hd, valid_len, splits,

@@ -3,14 +3,15 @@
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py
 // (_fwd_kernel, via flash_attention_fwd) -> spot_flash_attention_fwd.
-// Two kernels behind the one entry point, chosen by dtype alone:
-// bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA cores.
+// Two kernels behind the one entry point, chosen by dtype alone, both on
+// the tensor cores: bfloat16 through wgmma, float32 through mma.sync in
+// 3xTF32.
 //
 // What bounds it on an H100: operations. Per visible (q block, k block)
 // pair the kernel does 2 * 64 * 64 * hd multiply-adds against 2 * 64 * hd
 // loaded values, far above the card's ~295 operations per byte, so its
-// floor is the FLOPs over the tensor-core rate, reachable only through
-// wgmma.
+// floor is the FLOPs over the tensor-core rate: bf16's, or in float32 three
+// TF32 products for each product.
 //
 // bfloat16: flash_fwd_wgmma_kernel. One CTA of two warpgroups per
 // (128-row q tile, head, batch); each warpgroup owns 64 q rows, and both
@@ -58,210 +59,315 @@
 //    keeps the barriers' count. Shared memory at hd 256: Q 64 KB + K, V in
 //    two stages 128 KB; one CTA of 256 threads per SM.
 
-// float32: flash_fwd_kernel, on the CUDA cores (IEEE fmaf, never TF32),
-// kept for the float32 checks (gradients card vs host, decode vs teacher
-// forcing). One CTA of 8 warps per (64-row q block, head, batch). The q
-// tile is widened to float32 and scaled once (the reference's
-// q.astype(f32) * scale), and K/V tiles of 64 rows stream through shared
-// memory in float32: K with a padded row (hd + 1 floats) so that lane j
-// reading key j's column d hits bank (j + d) % 32, conflict-free. Warp w
-// owns q rows 8w..8w+7; for scores lane j owns keys j and j + 32 of the
-// tile; for the output lane j owns columns j, j + 32, ... (hd / 32 floats
-// per row in registers). Probabilities pass from the score layout to the
-// output layout through a per-warp slice of shared memory. Its bound is
-// shared-memory loads, well above the floor. It skips invisible blocks and
-// masks as the bf16 kernel does.
+// float32: flash_fwd_tf32x3_kernel, on the tensor cores in 3xTF32
+// (mma.sync m16n8k8 tf32, float32 sums), the layout of the float32 dq pass
+// (flash_attention_bwd.cu) with the online softmax in place of dP and dS,
+// and O += P V in place of dQ += dS K. Every operand value x of S = Q K^T
+// and of O += P V is split into hi, x rounded to TF32 as cvt.rna rounds
+// it, and lo, x - hi rounded the same way (split_tf32, the backward's
+// split), and a b ~ hi_a lo_b + lo_a hi_b
+// + hi_a hi_b, the two small products first, into one float32 accumulator
+// (tf32x3.cuh): about float32's error (the CPU emulation in
+// tests/test_torch_flash_numerics.py), where one TF32 rounding misses the
+// 2e-5 tolerance by 47-77x. q is scaled in float32 as its fragments load,
+// before the split (the reference's q.astype(f32) * scale).
+//  * Grid: one CTA of 8 warps per (64-row q tile, query head, batch), the
+//    q tile in the slow grid dimension and, with a causal mask, the
+//    heaviest first, so every head's heavy tiles start in the first wave.
+//    Q stays in shared memory; K and V stream through a two-stage cp.async
+//    ring (16 bytes a thread; the next tile's copies are issued right after
+//    the one block barrier of each tile, so they overlap its products).
+//    Key tiles of 32 at hd 256, 64 below. Rows are padded to hd + 4 floats,
+//    so every fragment load is free of bank conflicts.
+//  * S: the warps 2i and 2i + 1 (a pair) own q rows 16i .. 16i + 15. Each
+//    computes S for the pair's rows and the whole key tile over its half of
+//    the head dimension (each split Q fragment feeds every key block), and
+//    the halves meet through shared memory, each warp keeping its half of
+//    the keys (pair_sum), summed over the whole head dimension.
+//  * Softmax: each warp keeps its own running max and sum over the keys it
+//    keeps (half of every tile), in base 2 on the accumulator fragment:
+//    m = max(s) * log2(e), P = exp2(fma(s, log2(e), -m)); the row max
+//    combines across the quad (shuffles 1 and 2) and needs no other warp.
+//    Masked scores take the reference's finite NEG_INF = -2**30, evaluated
+//    only on a tile across the causal diagonal or the window's lower edge;
+//    a tile none of the pair's rows sees is skipped, as _visible skips it,
+//    and a warp skips the half tile none of its rows sees.
+//  * O += P V: P goes from the accumulator layout to the A layout by
+//    relabelling k (tf32x3.cuh), in registers, with no shared memory and no
+//    shuffle; V is read down its rows as B under the same labels. Each warp
+//    holds O for its 16 rows over the whole head dimension: hd / 2 floats
+//    a thread, 128 at hd 256, where the kernel still fits in 255 registers
+//    without spills (chip_smoke.py prints ptxas's counts). The alternative,
+//    O's columns split across the pair, halves that but makes the pair
+//    exchange P and the row max through shared memory on every tile.
+//  * End: the two partial softmaxes of a pair merge once, through shared
+//    memory: M = max(m0, m1), L = l0 2^(m0 - M) + l1 2^(m1 - M), each warp
+//    writing its half of O's columns, O / L (a zero L divides by 1), and
+//    the log-sum-exp as a natural log, M ln 2 + log L.
+//  * What bounds it: the ALU work of the splits (a fragment value is one
+//    shared-memory load and seven instructions) beside the tensor cores'
+//    three products a product, with 8 warps an SM at hd 96-256 (16 at
+//    hd 64) to hide their latencies.
 //
 // Shapes: q (B, Sq, H, hd), k/v (B, Skv, KV, hd), o like q, lse (B, H, Sq)
 // float32; Sq and Skv are multiples of 64 (the wrapper pads), hd is 64, 96,
-// 128 or 256, H % KV == 0 (query head h reads KV head h / (H / KV)). The
-// bf16 kernel's q, k and v start on 16-byte boundaries (a tensor map's
-// base; the wrapper copies a view that does not).
+// 128 or 256, H % KV == 0 (query head h reads KV head h / (H / KV)). q, k
+// and v start on 16-byte boundaries (a tensor map's base in bf16, cp.async's
+// 16-byte copies in float32; the wrapper copies a view that does not).
 #include <cuda.h>
 
 #include "common.cuh"
+#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1073741824.0f;  // -2**30, the reference's mask value
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = BQ / WARPS;  // q rows per warp
+constexpr int BLOCK = 64;   // Sq and Skv are multiples of it (the wrapper pads)
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores, 3xTF32
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float warp_sum(float v) {
+using namespace spot::tf32;
+
+template <int HD>
+struct F32Fwd {
+  static constexpr int BQ = 64;                    // q rows per CTA
+  static constexpr int BK = HD > 128 ? 32 : 64;    // keys per tile
+  static constexpr int KW = BK / 2;                // keys a warp keeps
+  static constexpr int NB = KW / 8;                // its 8-key blocks
+  static constexpr int ND = HD / 8;                // O's 8-column blocks
+  static constexpr int LD = HD + 4;                // tile row stride
+  // Q; K and V in two stages; the pair sums' outboxes (NB float4 a lane)
+  static constexpr int SMEM = 4 * (BQ * LD + 2 * 2 * BK * LD + F_THREADS * 4 * NB);
+  // the end's exchange (half of O's blocks, then m and l: float4s a lane)
+  // reuses the K and V stages
+  static constexpr int NX = ND / 2 + 1;
+  static_assert(F_THREADS * NX * 4 <= 2 * 2 * BK * LD, "the end's exchange fits");
+  // two CTAs an SM where their shared memory fits (hd 64)
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 232448 ? 2 : 1;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, F32Fwd<HD>::MIN_BLOCKS)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                        int causal, int window, float scale) {
+  using C = F32Fwd<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, KW = C::KW, NB = C::NB, ND = C::ND;
+  constexpr int LD = C::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                  // BQ x LD
+  float* Ks = Qs + BQ * LD;          // two stages of BK x LD
+  float* Vs = Ks + 2 * BK * LD;      // two stages of BK x LD
+  float4* xch = reinterpret_cast<float4*>(Vs + 2 * BK * LD);  // pair sums
+
+  // q tiles in the slow grid dimension, causal ones with the most visible
+  // keys first, for every head
+  const int nqt = Sq / BQ;
+  const int qt = causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int h = blockIdx.x % H, b = blockIdx.x / H, kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int half = warp & 1;          // its half of S's head dim and of the keys
+  const int q_lo = qt * BQ, q_hi = q_lo + BQ - 1;
+  const int r_lo = q_lo + (warp >> 1) * 16, r_hi = r_lo + 15;  // the pair's rows
+  const long long qs = (long long)H * HD, kvs = (long long)KV * HD;
+
+  // the key tiles some row of this q tile can see: [kt0, kt1)
+  const int nkt = Skv / BK;
+  const int kt1 = causal ? min(nkt, q_hi / BK + 1) : nkt;
+  const int kt0 = window ? max(0, q_lo - window + 1) / BK : 0;
+
+  const long long q_off = ((long long)b * Sq + q_lo) * qs + (long long)h * HD;
+  load_rows<BQ, HD, LD>(Qs, q + q_off, qs, tid);
+  const float* kb = k + (long long)b * Skv * kvs + (long long)kvh * HD;
+  const float* vb = v + (long long)b * Skv * kvs + (long long)kvh * HD;
+  auto load_kv = [&](int kt, int st) {
+    const long long off = (long long)kt * BK * kvs;
+    load_rows<BK, HD, LD>(Ks + st * BK * LD, kb + off, kvs, tid);
+    load_rows<BK, HD, LD>(Vs + st * BK * LD, vb + off, kvs, tid);
+  };
+  if (kt0 < kt1) load_kv(kt0, 0);
+  tc::cp_async_commit();
+
+  // O for rows r_lo + g (r = 0) and + 8 (r = 1) over the whole head
+  // dimension; m in base-2 units and this lane's part of l, over the keys
+  // this warp keeps
+  float acc[ND][4];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt1) load_kv(kt + 1, st ^ 1);
+    tc::cp_async_commit();
+    const int k_lo = kt * BK;
+    // a tile none of the pair's rows sees
+    if ((causal && k_lo > r_hi) || (window && k_lo + BK - 1 <= r_lo - window)) continue;
+    const float* Kt = Ks + st * BK * LD;
+    const float* Vt = Vs + st * BK * LD;
+
+    // S = (q scale) K^T on the pair's 16 rows x the whole tile, over this
+    // warp's half of the head dimension; the halves meet, each warp
+    // keeping its KW keys
+    float s[2 * NB][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    {
+      const int d0 = half * HD / 2;
+      const float* qp = Qs + (r_lo - q_lo) * LD + d0;
+      const float* kp = Kt + d0;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const FragA qa = frag_a<LD>(qp + kk * 8, lane, scale);
+#pragma unroll
+        for (int n = 0; n < 2 * NB; ++n)
+          mma3(s[n], qa, frag_b_rows<LD>(kp + 8 * n * LD + kk * 8, lane, 1.f));
+      }
+    }
+    float sk[NB][4];
+    pair_sum<NB>(xch, warp, lane, half, s, sk, 1 + warp / 2);
+
+    // this warp's keys w_lo .. w_lo + KW - 1: skipped if none of its rows
+    // sees one, masked only across the causal diagonal or the window's
+    // lower edge
+    const int w_lo = k_lo + half * KW;
+    if ((causal && w_lo > r_hi) || (window && w_lo + KW - 1 <= r_lo - window)) continue;
+    const bool edge = (causal && w_lo + KW - 1 > r_lo) || (window && w_lo <= r_hi - window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (edge) {
+          const int row = r_lo + g + 8 * (i >> 1);
+          const int key = w_lo + 8 * n + 2 * t + (i & 1);
+          bool ok = true;
+          if (causal) ok = key <= row;
+          if (window) ok = ok && key > row - window;
+          if (!ok) sk[n][i] = NEG_INF;
+        }
+        mx[i >> 1] = fmaxf(mx[i >> 1], sk[n][i]);
+      }
+    // base 2: m is the running max of s * log2(e) (rounding is monotonic,
+    // so the max of the products is the product of the max)
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * LOG2E);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sk[n][i] = exp2f(fmaf(sk[n][i], LOG2E, -m[i >> 1]));
+        l[i >> 1] += sk[n][i];
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+
+    // O += P V: P's 8-key block kk as an A fragment, k relabelled (k = t
+    // is the key 2t of the block, k = t + 4 the key 2t + 1)
+    FragA pa[NB];
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      split_tf32(sk[kk][0], pa[kk].hi[0], pa[kk].lo[0]);
+      split_tf32(sk[kk][2], pa[kk].hi[1], pa[kk].lo[1]);
+      split_tf32(sk[kk][1], pa[kk].hi[2], pa[kk].lo[2]);
+      split_tf32(sk[kk][3], pa[kk].hi[3], pa[kk].lo[3]);
+    }
+    const float* vp = Vt + half * KW * LD;
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk)
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        mma3(acc[n], pa[kk], frag_b_cols<LD>(vp + kk * 8 * LD + 8 * n, lane, 1.f));
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with K and V: the exchange reuses them
+
+  // the pair's two partial softmaxes merge: each warp sends the other the
+  // O blocks the other writes (warp half h writes blocks h ND / 2 ..), then
+  // its m and its lanes' l (the pair's lanes hold the same rows and
+  // columns); blocks are chosen by selects, not by a runtime index
+  constexpr int NH = ND / 2;
+  float4* xo = reinterpret_cast<float4*>(Ks);
+  float4* out = xo + warp * C::NX * 32 + lane;
+  const float4* in = xo + (warp ^ 1) * C::NX * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NH; ++n) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = half ? acc[n][i] : acc[NH + n][i];
+    out[n * 32] = make_float4(x[0], x[1], x[2], x[3]);
+  }
+  out[NH * 32] = make_float4(m[0], m[1], l[0], l[1]);
+  bar_sync(1 + warp / 2, 64);
+  const float4 pm = in[NH * 32];
+  const float m_p[2] = {pm.x, pm.y}, l_p[2] = {pm.z, pm.w};
+  float f[2], f_p[2], den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mm = fmaxf(m[r], m_p[r]);
+    f[r] = exp2f(m[r] - mm);
+    f_p[r] = exp2f(m_p[r] - mm);
+    float lsum = l[r] * f[r] + l_p[r] * f_p[r];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    lsum = lsum == 0.f ? 1.f : lsum;
+    den[r] = lsum;
+    const int row = r_lo + g + 8 * r;
+    if (half == 0 && t == 0)  // a natural log, as the reference's
+      lse[((long long)b * H + h) * Sq + row] = mm * LN2 + logf(lsum);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* orow = o + ((long long)b * Sq + r_lo + g + 8 * r) * qs + (long long)h * HD +
+                  half * (HD / 2) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const float4 pv = in[n * 32];
+      const float p0 = r ? pv.z : pv.x, p1 = r ? pv.w : pv.y;
+      const float a0 = half ? acc[NH + n][2 * r] : acc[n][2 * r];
+      const float a1 = half ? acc[NH + n][2 * r + 1] : acc[n][2 * r + 1];
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2((a0 * f[r] + p0 * f_p[r]) / den[r], (a1 * f[r] + p1 * f_p[r]) / den[r]);
+    }
+  }
 }
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * HD + BK * (HD + 1) + BK * HD + BQ * BK);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Skv, int H, int KV,
-                 int causal, int window, float scale) {
-  constexpr int COLS = HD / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // BQ x HD, scaled float32
-  float* Ks = Qs + BQ * HD;          // BK x (HD + 1)
-  float* Vs = Ks + BK * (HD + 1);    // BK x HD
-  float* Ps = Vs + BK * HD;          // BQ x BK probabilities
-
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q_lo = qi * BQ, q_hi = q_lo + BQ - 1;
-
-  const long long q_stride = (long long)H * HD;     // between sequence rows
-  const long long kv_stride = (long long)KV * HD;
-  const T* qb = q + ((long long)b * Sq + q_lo) * q_stride + (long long)h * HD;
-  const T* kb = k + (long long)b * Skv * kv_stride + (long long)kvh * HD;
-  const T* vb = v + (long long)b * Skv * kv_stride + (long long)kvh * HD;
-
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    Qs[i] = spot::to_f32<T>(qb[r * q_stride + d]) * scale;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][COLS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.f;
-  }
-
-  const float* qw = Qs + warp * ROWS * HD;
-  float* pw = Ps + warp * ROWS * BK;
-  const int nk = Skv / BK;
-  for (int ki = 0; ki < nk; ++ki) {
-    const int k_lo = ki * BK, k_hi = k_lo + BK - 1;
-    if (causal && k_lo > q_hi) break;             // past the causal frontier
-    if (window && k_hi <= q_lo - window) continue;  // wholly outside the band
-    __syncthreads();  // the previous tile's readers are done (and Qs is written)
-    for (int i = tid; i < BK * HD; i += THREADS) {
-      const int r = i / HD, d = i % HD;
-      const long long g = (long long)(k_lo + r) * kv_stride + d;
-      Ks[r * (HD + 1) + d] = spot::to_f32<T>(kb[g]);
-      Vs[i] = spot::to_f32<T>(vb[g]);
-    }
-    __syncthreads();
-
-    // scores: rows 8w.., keys lane and lane + 32
-    float s[ROWS][2];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* k0p = Ks + lane * (HD + 1);
-    const float* k1p = Ks + (lane + 32) * (HD + 1);
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float k0[4], k1[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        k0[e] = k0p[d + e];
-        k1[e] = k1p[d + e];
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * HD + d);
-        s[r][0] = fmaf(qv.x, k0[0], s[r][0]);
-        s[r][0] = fmaf(qv.y, k0[1], s[r][0]);
-        s[r][0] = fmaf(qv.z, k0[2], s[r][0]);
-        s[r][0] = fmaf(qv.w, k0[3], s[r][0]);
-        s[r][1] = fmaf(qv.x, k1[0], s[r][1]);
-        s[r][1] = fmaf(qv.y, k1[1], s[r][1]);
-        s[r][1] = fmaf(qv.z, k1[2], s[r][1]);
-        s[r][1] = fmaf(qv.w, k1[3], s[r][1]);
-      }
-    }
-
-    // mask, online softmax update, probabilities to shared memory
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qpos = q_lo + warp * ROWS + r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kpos = k_lo + lane + 32 * c;
-        bool ok = true;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window) ok = ok && kpos > qpos - window;
-        if (!ok) s[r][c] = NEG_INF;
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      const float p0 = expf(s[r][0] - m_new);
-      const float p1 = expf(s[r][1] - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p0 + p1);
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[r][c] *= alpha;
-      m[r] = m_new;
-      pw[r * BK + lane] = p0;
-      pw[r * BK + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    // acc += P V: lane owns columns lane, lane + 32, ...
-#pragma unroll 1
-    for (int j = 0; j < BK; j += 4) {
-      float vv[4][COLS];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) vv[e][c] = Vs[(j + e) * HD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(pw + r * BK + j);
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          acc[r][c] = fmaf(p.x, vv[0][c], acc[r][c]);
-          acc[r][c] = fmaf(p.y, vv[1][c], acc[r][c]);
-          acc[r][c] = fmaf(p.z, vv[2][c], acc[r][c]);
-          acc[r][c] = fmaf(p.w, vv[3][c], acc[r][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qrow = q_lo + warp * ROWS + r;
-    const float lsum = l[r] == 0.f ? 1.f : l[r];
-    T* orow = o + ((long long)b * Sq + qrow) * q_stride + (long long)h * HD;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      orow[lane + 32 * c] = spot::from_f32<T>(acc[r][c] / lsum);
-    if (lane == 0) lse[((long long)b * H + h) * Sq + qrow] = m[r] + logf(lsum);
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Sq, int Skv, int H, int KV, int causal, int window,
-           float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o, void* lse,
+                  int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                  float scale, cudaStream_t s) {
+  using C = F32Fwd<HD>;
+  if (Sq % C::BQ || Skv % C::BK) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_fwd_tf32x3_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / BQ, H, B);
-  kern<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+  const dim3 grid(H * B, Sq / C::BQ);
+  kern<<<grid, F_THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
       Sq, Skv, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -277,7 +383,6 @@ constexpr int TC_BQ = 128;            // q rows per CTA: two warpgroups of 64
 constexpr int TC_BK = 64;             // keys per tile
 constexpr int TC_THREADS = 256;
 constexpr int ISSUER = 128;           // the thread that issues every TMA load
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct TcFwd {
@@ -587,10 +692,10 @@ int dispatch_f32(int hd, const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int Sq, int Skv, int H, int KV, int causal,
                  int window, float scale, cudaStream_t s) {
   switch (hd) {
-    case 64: return launch<float, 64>(SPOT_FWD_ARGS);
-    case 96: return launch<float, 96>(SPOT_FWD_ARGS);
-    case 128: return launch<float, 128>(SPOT_FWD_ARGS);
-    case 256: return launch<float, 256>(SPOT_FWD_ARGS);
+    case 64: return launch_tf32x3<64>(SPOT_FWD_ARGS);
+    case 96: return launch_tf32x3<96>(SPOT_FWD_ARGS);
+    case 128: return launch_tf32x3<128>(SPOT_FWD_ARGS);
+    case 256: return launch_tf32x3<256>(SPOT_FWD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -616,7 +721,7 @@ extern "C" int spot_flash_attention_fwd(const void* q, const void* k,
                                         int B, int Sq, int Skv, int H, int KV,
                                         int hd, int dtype_code, int causal,
                                         int window, float scale, void* stream) {
-  if (Sq % BQ || Skv % BK || KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
+  if (Sq % BLOCK || Skv % BLOCK || KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case spot::kF32:
@@ -635,6 +740,17 @@ extern "C" int spot_flash_attention_fwd_wgmma_smem(int hd) {
     case 96: return TcFwd<96>::SMEM;
     case 128: return TcFwd<128>::SMEM;
     case 256: return TcFwd<256>::SMEM;
+    default: return -1;
+  }
+}
+
+// dynamic shared memory of the float32 (3xTF32) forward at head dim hd
+extern "C" int spot_flash_attention_fwd_tf32x3_smem(int hd) {
+  switch (hd) {
+    case 64: return F32Fwd<64>::SMEM;
+    case 96: return F32Fwd<96>::SMEM;
+    case 128: return F32Fwd<128>::SMEM;
+    case 256: return F32Fwd<256>::SMEM;
     default: return -1;
   }
 }

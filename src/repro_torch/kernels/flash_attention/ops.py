@@ -164,12 +164,12 @@ def _dims(q, k):
     return B, Sq, Skv, H, KV, hd
 
 
-# The kernel each dtype selects for each pass, fixed: bfloat16 runs the
-# forward, dkv and dq on the tensor cores (wgmma); float32 runs the forward
-# on the CUDA cores and dkv and dq on the tensor cores in 3xTF32 (mma.sync).
+# The kernel each dtype selects for each pass, fixed, every one on the
+# tensor cores: bfloat16 runs the forward, dkv and dq through wgmma; float32
+# runs all three in 3xTF32 (mma.sync, each product three TF32 products).
 # The C entry points dispatch on the same dtype code.
 VARIANTS = {torch.bfloat16: {"fwd": "wgmma", "dkv": "wgmma", "dq": "wgmma"},
-            torch.float32: {"fwd": "cudacore", "dkv": "tf32x3",
+            torch.float32: {"fwd": "tf32x3", "dkv": "tf32x3",
                             "dq": "tf32x3"}}
 
 
@@ -182,19 +182,19 @@ def _count(q, pass_: str) -> None:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """The bf16 forward reads q, k and v through TMA tensor maps, and the
-    backward passes copy their tiles 16 bytes at a time (cp.async): a base
-    address must be 16-byte aligned, so a view that starts elsewhere is
-    copied."""
+    float32 forward and the backward passes copy their tiles 16 bytes at a
+    time (cp.async): a base address must be 16-byte aligned, so a view that
+    starts elsewhere is copied."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
 def _launch_fwd(q, k, v, causal, window):
-    q, k, v = _operands("flash_attention_fwd", q, k, v)
-    if q.dtype == torch.bfloat16:
-        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
+    q, k, v = map(_aligned16, _operands("flash_attention_fwd", q, k, v))
     B, Sq, Skv, H, KV, hd = _dims(q, k)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # both kernels write every row of o and lse (each CTA its q tile,
+    # whether or not it sees a key), so neither is filled first
+    o = _lib.kernel_output(q.shape, q.dtype, q.device)
+    lse = _lib.kernel_output((B, H, Sq), torch.float32, q.device)
     if o.numel() == 0:
         return o, lse
     err = _lib.library().spot_flash_attention_fwd(

@@ -340,6 +340,18 @@ FLASH_GPU_CASES = [
     *[(1, 256, H, 8, 128, 0, dt) for H in (48, 56, 96)
       for dt in (torch.bfloat16, torch.float32)],
     *[(2, 256, 24, 24, 64, 0, dt) for dt in (torch.bfloat16, torch.float32)],
+    # the 3xTF32 float32 forward at every head dim: hd 96 (phi3-mini's heads,
+    # a padded length, a window), hd 128 (GQA 4:1 with a window, a padded
+    # length), hd 256 (gemma3's GQA 4:1 with its window, a window edge
+    # inside a 32-key tile), hd 64 (a padded length, a window)
+    (2, 448, 32, 32, 96, 0, torch.float32),
+    (1, 200, 4, 2, 96, 0, torch.float32),
+    (2, 320, 4, 2, 96, 100, torch.float32),
+    (1, 320, 8, 2, 128, 64, torch.float32),
+    (2, 136, 4, 1, 128, 0, torch.float32),
+    (1, 1024, 4, 1, 256, 512, torch.float32),
+    (1, 448, 2, 1, 256, 200, torch.float32),
+    (1, 333, 4, 4, 64, 100, torch.float32),
 ]
 
 
@@ -362,7 +374,8 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
 
 @pytest.mark.parametrize("Sq,Skv,hd,dtype", [
     (128, 192, 64, torch.float32), (192, 128, 256, torch.bfloat16),
-    (64, 320, 96, torch.bfloat16)])
+    (64, 320, 96, torch.bfloat16), (192, 128, 256, torch.float32),
+    (64, 320, 96, torch.float32), (320, 64, 128, torch.float32)])
 def test_flash_attention_kernel_non_causal_aligned(cuda, Sq, Skv, hd, dtype):
     q = randn((1, Sq, 2, hd), dtype, 1, cuda)
     k = randn((1, Skv, 1, hd), dtype, 2, cuda)
@@ -390,9 +403,26 @@ def test_bf16_forward_takes_views_off_a_16_byte_boundary(cuda):
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
 
 
-def test_flash_attention_forward_is_deterministic(cuda):
-    q = randn((2, 320, 4, 256), torch.bfloat16, 5, cuda)
-    k, v = (randn((2, 320, 1, 256), torch.bfloat16, s, cuda) for s in (6, 7))
+def test_float32_forward_takes_views_off_a_16_byte_boundary(cuda):
+    """The float32 forward copies its q, k and v tiles 16 bytes at a time
+    (cp.async): views that start 4 bytes past a boundary are copied
+    first."""
+    B, S, H, KV, hd = 1, 192, 4, 2, 128
+    n = B * S * H * hd
+    q = randn((n + 1,), torch.float32, 33, cuda)[1:].view(B, S, H, hd)
+    kv = randn((2 * B * S * KV * hd + 1,), torch.float32, 34, cuda)[1:]
+    k, v = kv.view(2, B, S, KV, hd).unbind(0)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and q.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v, True, 64)
+    want, want_lse = attention_ref(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(o, want, atol=2e-5, rtol=0.0)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_forward_is_deterministic(cuda, dtype):
+    q = randn((2, 320, 4, 256), dtype, 5, cuda)
+    k, v = (randn((2, 320, 1, 256), dtype, s, cuda) for s in (6, 7))
     first = flash_attention_fwd(q, k, v, True, 0)
     again = flash_attention_fwd(q, k, v, True, 0)
     assert all(same_bits(a, b) for a, b in zip(first, again))
@@ -401,8 +431,8 @@ def test_flash_attention_forward_is_deterministic(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_route_by_dtype(cuda, dtype):
     """bf16 runs the forward, the dkv and the dq pass on the tensor cores
-    (wgmma); float32 runs the forward on the CUDA cores and dkv and dq on
-    the tensor cores in 3xTF32; every launch also counts under its pass."""
+    through wgmma; float32 runs all three on the tensor cores in 3xTF32;
+    every launch also counts under its pass."""
     q, do = (randn((1, 128, 4, 128), dtype, s, cuda) for s in (1, 2))
     k, v = (randn((1, 128, 1, 128), dtype, s, cuda) for s in (3, 4))
     before = dict(_lib.LAUNCHES)

@@ -21,14 +21,18 @@ of each element. More checks record why the kernels split: the split's
 error is at most 1/16 of the error of P and dS rounded once to bf16, and
 dS rounded once misses dQ's tolerance.
 
-The float32 dkv and dq kernels (3xTF32 on mma.sync) are emulated the same
-way: every operand of the five products rounded to TF32 as ``cvt.rna``
-does (nearest, ties away from zero, 10 explicit mantissa bits, on the
-float32 bits), split into hi = tf32(x) and lo = tf32(x - hi), every product
-taken as hi lo + lo hi + hi hi (each term exact in float32) with float32
-sums; q scaled before its split, dQ scaled once at the end. Held to the
-unchanged float32 gradient tolerance, against float64 beside plain float32,
-and against one TF32 rounding."""
+The float32 kernels (3xTF32 on mma.sync: the forward, dkv and dq) are
+emulated the same way: every operand of their products rounded to TF32 as
+``cvt.rna`` does (nearest, ties away from zero, 10 explicit mantissa bits,
+on the float32 bits), split into hi = tf32(x) and lo = tf32(x - hi), every
+product taken as hi lo + lo hi + hi hi (each term exact in float32) with
+float32 sums; q scaled before its split, dQ scaled once at the end. The
+forward keeps two partial softmaxes, one over each half of every key tile
+(as the two warps that share a row block keep them), in base 2, and merges
+them at the end.
+Held to the unchanged float32 tolerances (2e-5 for the forward's output
+and log-sum-exp, the gradient tolerance for dK, dV, dQ), against float64
+beside plain float32, and against one TF32 rounding."""
 
 import math
 
@@ -437,3 +441,115 @@ def test_single_tf32_rounding_misses_the_gradient_tolerance():
                            plain32(*args, 0)):
         lim = GRAD_TOL * max(1.0, float(w.abs().max()))
         assert float((x1 - w).abs().max()) > lim, name
+
+
+# ---------------------------------------------------------------------------
+# float32 forward: 3xTF32
+# ---------------------------------------------------------------------------
+
+FWD32_CASES = CASES32 + [
+    (1, 192, 4, 4, 64, 0),                    # hd 64 (musicgen's heads)
+    (1, 192, 4, 2, 128, 64),                  # GQA 2, a window
+]
+FWD32_IDS = [f"hd{c[4]}-w{c[5]}-kv{c[3]}" for c in FWD32_CASES]
+# measured on FWD32_CASES: 3xTF32's output differs from plain float32's
+# by at most 1.43e-6 (7% of ATT_ATOL); against float64 it errs 0.86-1.39x
+# as much as plain float32 in the output, 1.01-1.51x in the log-sum-exp;
+# one TF32 rounding differs from plain float32 by 9.5e-4 to 1.5e-3, 47-77x
+# ATT_ATOL (54x at gemma3's hd 256 without a window)
+
+
+def emulate_fwd32(q, k, v, window, scheme="tf32x3"):
+    """The float32 forward kernel's arithmetic under ``scheme``: (o, lse),
+    float32 (float64 for "f64", on the same float32 inputs). S = (q scale)
+    K^T; each half of every key tile (32 keys of 64, 16 of 32 at hd 256)
+    feeds its own running max m (base 2: max(s) * log2 e) and sum l, P =
+    exp2(fma(s, log2 e, -m)) (the fma emulated in float64 and rounded once),
+    O += P V; the two halves merge at the end, M = max(m0, m1), O and l
+    each scaled by exp2(m - M)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dt = torch.float64 if scheme == "f64" else f32
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
+    log2e = torch.tensor(LOG2E, dtype=dt)
+    qs = (q.to(dt) * scale).reshape(B, Sq, KV, G, hd)      # q widened, scaled
+    s = product("bqkgh,bskh->bkgqs", qs, k.to(dt), scheme).to(dt)
+    s = torch.where(mask(Sq, Skv, window), s, torch.tensor(NEG_INF, dtype=dt))
+    bk = 32 if hd > 128 else 64
+    parts = []
+    for half in range(2):
+        m = torch.full((B, KV, G, Sq), NEG_INF, dtype=dt)
+        l = torch.zeros((B, KV, G, Sq), dtype=dt)
+        acc = torch.zeros((B, KV, G, Sq, hd), dtype=dt)
+        for k0 in range(half * bk // 2, Skv, bk):
+            keys = slice(k0, k0 + bk // 2)
+            st = s[..., keys]
+            m_new = torch.maximum(m, st.amax(-1) * log2e)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2((st.double() * log2e.double()
+                            - m_new[..., None].double()).to(dt))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + product(
+                "bkgqs,bskh->bkgqh", p, v[:, keys].to(dt), scheme).to(dt)
+            m = m_new
+        parts.append((m, l, acc))
+    (m0, l0, a0), (m1, l1, a1) = parts
+    mm = torch.maximum(m0, m1)
+    f0, f1 = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
+    lsum = l0 * f0 + l1 * f1
+    lsum = torch.where(lsum == 0, torch.ones((), dtype=dt), lsum)
+    o = (a0 * f0[..., None] + a1 * f1[..., None]) / lsum[..., None]
+    lse = mm * math.log(2.0) + torch.log(lsum)
+    return (o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd),
+            lse.reshape(B, H, Sq))
+
+
+def inputs_fwd32(B, S, H, KV, hd, window):
+    """float32 q, k, v from a seeded numpy generator."""
+    rng = np.random.default_rng(2 * hd + window + KV)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", FWD32_CASES, ids=FWD32_IDS)
+def test_emulated_tf32x3_forward_holds_the_float32_tolerance(B, S, H, KV, hd,
+                                                             window):
+    """Output and log-sum-exp within ATT_ATOL (abs; the log-sum-exp also
+    rel) of the port's plain float32 forward, and the output within
+    ATT_ATOL of the JAX package's attention_ref on the same values."""
+    q, k, v = inputs_fwd32(B, S, H, KV, hd, window)
+    o, lse = emulate_fwd32(q, k, v, window)
+    want, want_lse = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(o, want, atol=ATT_ATOL, rtol=0.0)
+    torch.testing.assert_close(lse, want_lse, atol=ATT_ATOL, rtol=ATT_ATOL)
+    jax_o = jax.jit(jax_attention_ref, static_argnames=("causal", "window"))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True,
+        window=window)
+    torch.testing.assert_close(o, torch.from_numpy(np.array(jax_o)),
+                               atol=ATT_ATOL, rtol=0.0)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", FWD32_CASES, ids=FWD32_IDS)
+def test_tf32x3_forward_errs_about_as_much_as_float32(B, S, H, KV, hd,
+                                                      window):
+    """Against float64 on the same inputs, the 3xTF32 forward's output and
+    log-sum-exp err at most TF32X3_ERR_RATIO times as much as the plain
+    float32 forward's."""
+    q, k, v = inputs_fwd32(B, S, H, KV, hd, window)
+    exact = emulate_fwd32(q, k, v, window, scheme="f64")
+    for name, x3, x, e in zip(("o", "lse"), emulate_fwd32(q, k, v, window),
+                              attention_ref(q, k, v, window=window), exact):
+        err3 = float((x3.double() - e).abs().max())
+        err = float((x.double() - e).abs().max())
+        assert err3 <= TF32X3_ERR_RATIO * err, (name, err3, err)
+
+
+def test_single_tf32_rounding_misses_the_forward_tolerance():
+    """Why every product of the forward is split: each operand rounded once
+    to TF32 puts the output outside ATT_ATOL of the plain float32 forward
+    at gemma3's head dim."""
+    q, k, v = inputs_fwd32(1, 256, 4, 1, 256, 0)
+    o, _ = emulate_fwd32(q, k, v, 0, scheme="tf32")
+    want, _ = attention_ref(q, k, v)
+    assert float((o - want).abs().max()) > ATT_ATOL
