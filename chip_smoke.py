@@ -13,7 +13,9 @@ deepseek-moe-16b, minitron-8b and musicgen-medium at their full published
 configs, and runs the spot loops on deepseek-moe-16b's width, all with
 seeded weights:
 
-  kernels         fingerprint (both launches) / absmax / quantize /
+  kernels         the chunk digest (an urgent save's SHA-1 addresses and
+                  CRC-32s) vs hashlib and zlib; fingerprint (both
+                  launches) / absmax / quantize /
                   dequantize vs plain; flash-attention forward, flash
                   decode, the selective scan (bf16 and float32, a row
                   each) and the RG-LRU scan vs plain at the serving shapes;
@@ -28,10 +30,20 @@ seeded weights:
                   churn: exact d2h accounting, bit-identical restore; one
                   save's fingerprint launches under the profiler
   spot_loop       transparent policy, one eviction: bitwise-equal final loss
-                  against an uninterrupted run
+                  against an uninterrupted run; each urgent save's wall
+                  time and legs against its notice budget
   spot_loop_int8  the same on a quantize_moments store: the urgent save
                   quantizes the moments on the device, the restore widens
                   them there, bit-identical to the host dequantize
+  fleet_peer      phi3-mini's cut trained on a delta-mode store to three
+                  periodic saves; the warm fingerprint tracker rescaled
+                  2 -> 3 -> 2 members, then a delta save copying under half
+                  the state; at an eviction notice, an urgent save and a
+                  three-member peer exchange seeded under its 256 MiB
+                  budget; the replacement restores onto the card through
+                  its peers, bitwise equal to a restore from the store,
+                  the peer hits equal to the chunks seeded, and again with
+                  a peer's server closed
   train_gemma3    8 make_train_step steps of gemma3-1b (26 layers, bf16,
                   batch 2 x 2048), every attention layer through the flash
                   forward, dkv and dq kernels: step time, tokens/s, peak
@@ -329,6 +341,53 @@ def fingerprint_kernels(embed, cases) -> dict:
             shape=list(parts.shape), dtype="int32")}
 
 
+def chunk_digest_kernel(dev, leaves) -> dict:
+    """The chunk digest against its plain version (hashlib's SHA-1 and
+    zlib's CRC-32), every chunk, on ragged, mixed-dtype cases in one call
+    and at 1 MiB, 4 KiB and 64-byte chunks; then checked and timed on
+    ``leaves``, the leaves a spot loop's urgent save digested (one launch
+    over all their 1 MiB chunks, as in the save). Its plain version runs on
+    the host, timed on the host's clock."""
+    import torch
+    from repro_torch.kernels.chunk_digest import (chunk_digests,
+                                                  chunk_digests_ref)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    cases = [torch.randn((3 * CHUNK // 4 + 5,), generator=g, device=dev),
+             torch.randn((CHUNK // 2 + 7,), generator=g,
+                         device=dev).to(torch.bfloat16),
+             torch.randint(-128, 127, (CHUNK + 12345,), dtype=torch.int8,
+                           generator=g, device=dev),
+             torch.zeros((0,), device=dev),
+             torch.randint(0, 1 << 30, (5,), dtype=torch.int32, generator=g,
+                           device=dev)]
+    for cb in (CHUNK, 4096, 64):
+        got = chunk_digests(cases, cb).result()
+        need(got == [chunk_digests_ref(t.cpu(), cb) for t in cases],
+             f"chunk digests differ from hashlib/zlib at {cb}-byte chunks")
+    host = [t.cpu() for t in leaves]
+    t0 = time.perf_counter()
+    want = [chunk_digests_ref(t, CHUNK) for t in host]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = chunk_digests(leaves, CHUNK).result()
+    mismatched = sum(a != b for g_, w in zip(got, want) for a, b in zip(g_, w))
+    need(mismatched == 0, f"{mismatched} chunk digests differ on the leaves")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_chunks = sum(map(len, got))
+    clock = sm_clock_mhz()
+    int_rate = H100_SMS * INT32_OPS_PER_SM_CLOCK * clock * 1e6
+    return {"chunk_digest": dict(
+        ms=time_ms(lambda: chunk_digests(leaves, CHUNK), reps=5, runs=3),
+        plain_ms=plain_ms, plain_on="host", library_ms=None,
+        max_abs_err=float(mismatched), chunks=n_chunks,
+        # bytes: each leaf once, 24 bytes out a chunk; operations: SHA-1's
+        # ~1,016 integer operations a 64-byte block (80 rounds and the
+        # schedule) and CRC-32's ~15 a word by slicing-by-4, 20 a byte
+        bound=bound(nbytes + n_chunks * 24, nbytes * 20, int_rate),
+        sm_clock_mhz=clock, shape=[list(t.shape) for t in leaves],
+        dtype=[str(t.dtype).replace("torch.", "") for t in leaves])}
+
+
 # ---------------------------------------------------------------------------
 # phase: kernels
 # ---------------------------------------------------------------------------
@@ -363,6 +422,8 @@ def phase_kernels(cfg, dev) -> dict:
              torch.randint(0, 1 << 30, (5,), dtype=torch.int32, generator=g,
                            device=dev)]
     out.update(fingerprint_kernels(embed, cases))
+    # the chunk digest's row is made by the spot_loop phase, on its urgent
+    # save's leaves (``KERNEL_ROW_PHASE``)
 
     # absmax: moment (f32), embed (bf16), ragged, a whole trip of the
     # resident grid and one element either side, a misaligned view, NaN
@@ -1196,7 +1257,10 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
         (the step is functional, so a held state stays unchanged), and
         each urgent save's step, notice budget (the virtual clock's seconds
         left, which the save waits for in real seconds), wall time on the
-        host's clock and whether it committed."""
+        host's clock, whether it committed and its legs (the
+        coordinator's ``last_urgent_legs``: wall legs that partition the
+        save's wall time, and the threads' busy seconds); after a save
+        commits, its chunks are hashed on the host (``_hash_chunks``)."""
         urgent_state = None
         restored = None
 
@@ -1207,7 +1271,10 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
             ok = super()._save_termination(step, state, deadline)
             self.urgent_saves.append({"step": step, "budget_s": budget,
                                       "wall_s": time.perf_counter() - t0,
-                                      "committed": ok})
+                                      "committed": ok,
+                                      "legs": self.last_urgent_legs,
+                                      **(_hash_chunks(self.store, step)
+                                         if ok else {})})
             return ok
 
         def restore_latest(self, template, **kw):
@@ -1236,6 +1303,63 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
     return rep, coord, time.perf_counter() - t0
 
 
+def _hash_chunks(store, step) -> dict:
+    """Every chunk the committed checkpoint of ``step`` references, read
+    back from the pool and hashed on the host with hashlib and zlib: the
+    count, and how many do not hash to their name or their CRC-32."""
+    import hashlib
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    man, reader = store.latest_valid(max_step=step)
+    reader.close()
+    need(man.step == step and man.kind == "termination",
+         f"the checkpoint of step {step} is {man.kind} step {man.step}")
+    refs = {c["h"]: c["c"] for r in man.tensors for c in r.get("chunks", ())}
+
+    def bad(ref) -> bool:
+        h, crc = ref
+        with open(store.pool.path(h), "rb") as f:
+            data = f.read()
+        return hashlib.sha1(data).hexdigest() != h or zlib.crc32(data) != crc
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        n_bad = sum(ex.map(bad, refs.items()))
+    return {"chunks_hashed": len(refs), "chunks_bad": n_bad,
+            "hash_check_s": time.perf_counter() - t0}
+
+
+def _need_urgent_chunks(what: str, coord, counted: dict) -> None:
+    """Every committed urgent save launched the chunk digest (the stores
+    here keep float leaves raw, so each save digests on the card) and
+    every chunk its manifest references hashes to its name."""
+    done = [u for u in coord.urgent_saves if u["committed"]]
+    need(bool(done), f"{what}: no urgent save committed")
+    need(counted["chunk_digest"] >= len(done),
+         f"{what}: {counted['chunk_digest']} chunk digest launches for "
+         f"{len(done)} urgent saves")
+    for u in done:
+        need(u["chunks_hashed"] > 0 and u["chunks_bad"] == 0,
+             f"{what}: {u['chunks_bad']} of the {u['chunks_hashed']} chunks "
+             f"of the urgent save at step {u['step']} do not hash to their "
+             "names")
+
+
+def _pinned_memory() -> dict:
+    """Pinned host memory: the staging pool's free set, and (where this
+    PyTorch reports it) what its caching host allocator holds."""
+    import torch
+    from repro_torch.checkpoint.hostcopy import STAGING
+    out = {"staging_free_bytes": STAGING.held_bytes(),
+           "staging_stats": dict(STAGING.stats)}
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None:
+        st = stats()
+        out.update({k: st.get(f"allocated_bytes.{k}") for k in ("current", "peak")
+                    if f"allocated_bytes.{k}" in st})
+    return out
+
+
 def _loop_summary(rep, coord, wall_s) -> dict:
     c = rep.coordinator
     return {"completed": rep.completed, "final_loss": rep.final_loss,
@@ -1246,7 +1370,8 @@ def _loop_summary(rep, coord, wall_s) -> dict:
             "termination_ckpts": c["termination_ckpts"],
             "d2h_bytes": c["d2h_bytes"], "save_stall_s": c["save_stall_s"],
             "mttr_mean_s": c["mttr_mean_s"], "wall_s": wall_s,
-            "urgent_saves": coord.urgent_saves}
+            "urgent_saves": coord.urgent_saves,
+            "pinned_host": _pinned_memory()}
 
 
 def _need_variant(counted: dict, what: str, dtype: str) -> None:
@@ -1263,8 +1388,9 @@ def _need_variant(counted: dict, what: str, dtype: str) -> None:
 
 
 def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
-                    seq_len=64, factored=False) -> dict:
+                    seq_len=64, factored=False, row=False) -> dict:
     import torch
+    from repro_torch.checkpoint import serialize as ser
     from repro_torch.kernels import _lib
     base, base_coord, base_wall = run_loop(cfg, dev, workdir / "base", mode="off",
                                    evict_s=None, steps=steps, seq_len=seq_len,
@@ -1282,6 +1408,7 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
     need(base.completed and ev.completed, "a spot loop did not complete")
     need(ev.evictions_seen >= 1 and ev.restores >= 1,
          "the evicted run saw no eviction or no restore")
+    _need_urgent_chunks(name, ev_coord, launches[name])
     need(ev.lost_steps == 0, f"the evicted run lost {ev.lost_steps} steps "
                              f"(urgent saves: {ev_coord.urgent_saves})")
     need(math.isfinite(base.final_loss), "non-finite loss")
@@ -1307,6 +1434,16 @@ def phase_spot_loop(cfg, dev, workdir, steps, launches, *, name="spot_loop",
                      "factored_second_moment": factored}
     res["launches"] = launches[name]
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if row:
+        # the chunk digest's row: checked and timed on the leaves the last
+        # urgent save digested, after the counts were read
+        named = ser.flatten_state(ev_coord.urgent_state)
+        leaves = [t for n, t in named.items()
+                  if isinstance(t, torch.Tensor) and t.device.type == "cuda"
+                  and ev_coord.store.urgent_digest_chunk(n, t) == CHUNK]
+        res["kernel_rows"] = chunk_digest_kernel(dev, leaves)
+        del named, leaves
+    ev_coord.urgent_state = None
     torch.cuda.empty_cache()
     return res
 
@@ -1325,6 +1462,7 @@ def phase_spot_loop_int8(cfg, dev, workdir, steps, launches) -> dict:
     res = _loop_summary(rep, coord, wall)
     need(rep.completed and rep.evictions_seen >= 1 and rep.restores >= 1,
          "the int8 loop did not complete through an eviction and a restore")
+    _need_urgent_chunks("spot_loop_int8", coord, launches["spot_loop_int8"])
     need(rep.lost_steps == 0, f"the int8 loop lost {rep.lost_steps} steps")
     need(math.isfinite(rep.final_loss), "non-finite loss in the int8 loop")
     for k in ("absmax", "quantize", "dequantize", "fingerprint",
@@ -1352,6 +1490,197 @@ def phase_spot_loop_int8(cfg, dev, workdir, steps, launches) -> dict:
         n_mom += 1
     need(n_mom > 0, "no moments compared")
     res["moments_compared"] = n_mom
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase: fleet peer exchange and elastic rescale
+# ---------------------------------------------------------------------------
+
+FLEET_STEPS = 10               # fleet_peer's train steps: periodic saves at 3, 6, 9
+FLEET_MEMBERS = 3
+
+
+def phase_fleet_peer(cfg, dev, workdir, launches) -> dict:
+    """A trainer on the card with a delta-mode store and the device-delta
+    tracker until three periodic saves have committed; its coordinator's
+    warm tracker rescaled 2 -> 3 -> 2 members (``fleet_mesh_plan``,
+    ``member_addressable``), then a delta save of the state with 5% of its
+    blocks changed. At an eviction notice member 0 of a three-member
+    ``FleetPeerExchange`` (servers on 127.0.0.1) takes the urgent save and
+    seeds the survivors with the newest chunks of the latest checkpoint
+    under the default 256 MiB budget. Its replacement — member 0's slot,
+    with an empty local pool — restores onto the card through
+    ``read_through(0, store.pool)``, streaming: every leaf bitwise equal to
+    a restore from the store alone, the peer hits equal to the chunks seeded,
+    the rest from the store; then again with member 1's server closed."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore, FleetPeerExchange
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.core import (AZURE_D8S_V3, CheckpointPolicy,
+                                  CostAccountant, NoEviction, ScaleSet, Signal,
+                                  SimulatedMetadataService, SpotOnCoordinator,
+                                  TimeModel, VirtualClock)
+    from repro_torch.core.elastic import fleet_mesh_plan, member_addressable
+    from repro_torch.kernels import _lib
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (SpotTrainer, TrainJob,
+                                   state_template_on_device)
+
+    class LastState(SpotOnCoordinator):
+        """Keeps the state of the last step (the step is functional)."""
+        state = None
+
+        def on_step_end(self, step, state_fn, **kw):
+            self.state = state_fn()
+            return super().on_step_end(step, lambda: self.state, **kw)
+
+    _lib.reset_launches()
+    clock = VirtualClock()
+    store = CheckpointStore(str(workdir / "fleet_store"), time_fn=clock.now,
+                            retention=3)
+    coord = LastState(store, CheckpointPolicy.transparent(30.0), clock,
+                      time_model=TimeModel())
+    pool = ScaleSet(clock=clock, schedule=NoEviction(),
+                    accountant=CostAccountant(AZURE_D8S_V3),
+                    provisioning_delay_s=10.0, notice_s=30.0)
+    job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=FLEET_STEPS,
+                                            warmup_steps=2),
+                   total_steps=FLEET_STEPS, n_stages=2, batch=2, seq_len=64)
+    t0 = time.perf_counter()
+    rep = SpotTrainer(job, coord, pool, clock, step_time_s=10.0,
+                      max_sessions=2, device=dev).run()
+    res: dict = {"train_s": time.perf_counter() - t0,
+                 "periodic_ckpts": rep.coordinator["periodic_ckpts"]}
+    need(rep.completed and rep.coordinator["periodic_ckpts"] >= 3,
+         f"the trainer committed {rep.coordinator['periodic_ckpts']} "
+         "periodic saves, not 3")
+    state, step = coord.state, rep.steps_executed
+    named = ser.flatten_state(state)
+    state_bytes = sum(t.numel() * t.element_size() for t in named.values()
+                      if isinstance(t, torch.Tensor))
+    tracker = coord.delta_tracker
+    # the last step's state, committed: every block moved since the last
+    # periodic save (a step updates every weight and moment), so this save
+    # copies the state; the tracker then holds the fingerprints of the
+    # state the rescale and the next delta save see
+    need(coord.save_periodic_now(step, state), "the periodic save failed")
+    coord.flush()
+
+    # elastic rescale of the warm tracker, 2 -> 3 -> 2 data-parallel
+    # members: every fingerprint survives; then a delta save of the state
+    # with 5% of its blocks changed copies only those
+    res["rescales"] = []
+    for n in (3, 2):
+        plan = fleet_mesh_plan(n, model_parallel=1)
+        r = coord.rescale_topology(member_addressable(plan, 0))
+        need(r["dropped"] == 0 and r["kept"] > 0,
+             f"rescale to {n} members kept {r['kept']}, dropped {r['dropped']}")
+        res["rescales"].append({"members": n, "mesh_shape": list(plan.shape),
+                                **r})
+    chosen, n_tracked = _perturb(state, tracker, 0.05, np.random.default_rng(1))
+    fp0 = _lib.LAUNCHES["fingerprint"]
+    d0, k0 = coord.stats.d2h_bytes, coord.stats.d2h_bytes_skipped
+    step += 1
+    need(coord.save_periodic_now(step, state), "the delta save failed")
+    coord.flush()
+    delta = {"d2h_bytes": coord.stats.d2h_bytes - d0,
+             "d2h_bytes_skipped": coord.stats.d2h_bytes_skipped - k0,
+             "state_bytes": state_bytes,
+             "fingerprint_launches": _lib.LAUNCHES["fingerprint"] - fp0,
+             "dirty_blocks": sum(map(len, chosen.values())),
+             "tracked_blocks": n_tracked}
+    res["delta_after_rescale"] = delta
+    need(delta["fingerprint_launches"] > 0,
+         "the delta save after the rescale launched no fingerprint kernel")
+    need(delta["d2h_bytes_skipped"] > 0
+         and delta["d2h_bytes"] < state_bytes / 2,
+         f"the delta save after the rescale copied {delta['d2h_bytes']} of "
+         f"{state_bytes} bytes")
+
+    # the eviction notice: member 0's urgent save, then the seeding
+    exchange = FleetPeerExchange(str(workdir / "fleet_fabric"), FLEET_MEMBERS)
+    try:
+        md = SimulatedMetadataService(clock, "vm-fleet-0")
+        coord.attach_instance(md, "vm-fleet-0")
+        md.simulate_eviction()
+        clock.advance(1.0)
+        step += 1
+        t0 = time.perf_counter()
+        need(coord.on_step_end(step, lambda: state) is Signal.PREEMPTING,
+             "the eviction notice was not seen")
+        res["urgent_save_s"] = time.perf_counter() - t0
+        res["urgent_legs"] = coord.last_urgent_legs
+        need(coord.stats.termination_ckpts == 1, "the urgent save failed")
+        man, reader = store.latest_valid()
+        reader.close()
+        need(man.step == step and man.kind == "termination",
+             f"the latest checkpoint is {man.kind} step {man.step}")
+        hashes = man.chunk_hashes()
+        n_refs = sum(len(r.get("chunks", ())) for r in man.tensors)
+        t0 = time.perf_counter()
+        seed = exchange.seed_from(0, store.pool, sorted(hashes))
+        res["seed"] = dict(seed, s=time.perf_counter() - t0,
+                           budget_bytes=exchange.budget_bytes,
+                           manifest_chunks=len(hashes), manifest_refs=n_refs,
+                           manifest_bytes=sum(t["nbytes"] for t in man.tensors))
+        need(0 < seed["chunks"] < len(hashes) and seed["survivors"] == 2
+             and seed["bytes"] <= exchange.budget_bytes,
+             f"seeding pushed {seed}")
+
+        template = state_template_on_device(state, dev)
+        t0 = time.perf_counter()
+        want, man_store = store.restore(template, streaming=True)
+        torch.cuda.synchronize()
+        res["restore_store_s"] = time.perf_counter() - t0
+        want = ser.flatten_state(want)
+
+        def replacement(what):
+            """Member 0's replacement: an empty local pool, a restore onto
+            the card through its peers, then the store."""
+            shutil.rmtree(exchange.members[0][0].root, ignore_errors=True)
+            rcoord = SpotOnCoordinator(store, CheckpointPolicy.transparent(30.0),
+                                       clock, time_model=TimeModel())
+            rt = exchange.read_through(0, store.pool)
+            t0 = time.perf_counter()
+            got, man_rt = rcoord.restore_latest(template, chunk_pool=rt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rcoord.close()
+            need(man_rt.step == man_store.step, f"{what}: restored another step")
+            got = ser.flatten_state(got)
+            for n, t in want.items():
+                need(same_bits(got[n], t), f"{what}: leaf {n} differs from "
+                                           "the restore from the store")
+            st = dict(rt.stats)
+            need(st["peer_hits"] == seed["chunks"],
+                 f"{what}: {st['peer_hits']} peer hits, {seed['chunks']} "
+                 "chunks seeded")
+            need(st["peer_hits"] + st["local_hits"] + st["store_reads"]
+                 == n_refs and st["store_reads"] > 0,
+                 f"{what}: {st} over {n_refs} chunk references")
+            return dict(st, restore_s=wall,
+                        peer_bytes=rt.client.stats["bytes_fetched"])
+
+        res["restore_peers"] = replacement("peer restore")
+        exchange.members[1][1].close()
+        res["restore_peer_down"] = replacement("peer restore, member 1 down")
+        del want
+    finally:
+        exchange.close()
+        coord.close()
+        shutil.rmtree(workdir / "fleet_store", ignore_errors=True)
+        shutil.rmtree(workdir / "fleet_fabric", ignore_errors=True)
+    launches["fleet_peer"] = dict(_lib.LAUNCHES)
+    need(launches["fleet_peer"]["chunk_digest"] > 0,
+         "the urgent save launched no chunk digest kernel")
+    res["config"] = {"name": cfg.name, "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "state_bytes": state_bytes,
+                     "members": FLEET_MEMBERS, "batch": 2, "seq_len": 64}
+    res["launches"] = launches["fleet_peer"]
+    del state, named, template
     torch.cuda.empty_cache()
     return res
 
@@ -1904,6 +2233,11 @@ def ptxas_summary(report: dict) -> dict:
 
 
 KERNELS = {
+    # no TPU kernel: the host digests of every chunk a save writes (the
+    # reference's chunk_digest and store_chunk's zlib.crc32), moved onto
+    # the card for urgent saves
+    "chunk_digest": ("src/repro_torch/kernels/csrc/chunk_digest.cu",
+                     "src/repro/checkpoint/chunkstore.py:105"),
     "fingerprint": ("src/repro_torch/kernels/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint/fingerprint.py:30"),
     # the fingerprint's second launch: each block's slice sums to its digest
@@ -1954,6 +2288,11 @@ KERNELS = {
 }
 
 
+# rows made by another phase than ``kernels``: the chunk digest is checked
+# and timed on the leaves of the spot loop's urgent save
+KERNEL_ROW_PHASE = {"chunk_digest": "spot_loop"}
+
+
 def main() -> int:
 
     import torch
@@ -2001,9 +2340,11 @@ def main() -> int:
             "kernels": lambda: phase_kernels(cfg, dev),
             "delta": lambda: phase_delta(cfg, dev, workdir),
             "spot_loop": lambda: phase_spot_loop(cfg, dev, workdir, STEPS,
-                                                 launches),
+                                                 launches, row=True),
             "spot_loop_int8": lambda: phase_spot_loop_int8(
                 cfg, dev, workdir, STEPS, launches),
+            "fleet_peer": lambda: phase_fleet_peer(cfg, dev, workdir,
+                                                   launches),
             "train_gemma3": lambda: phase_train_gemma3(dev, card, launches),
             "spot_loop_gemma3": lambda: phase_spot_loop(
                 get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
@@ -2067,7 +2408,8 @@ def main() -> int:
         return 1
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        k = results["kernels"][name]
+        k = (results[KERNEL_ROW_PHASE[name]]["kernel_rows"]
+             if name in KERNEL_ROW_PHASE else results["kernels"])[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": sum(v[name] for v in launches.values()),

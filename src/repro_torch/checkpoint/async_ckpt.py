@@ -128,7 +128,9 @@ class AsyncCheckpointer:
         Urgent saves never use the device-delta fingerprint path: the notice
         window cannot wait for a digest round-trip at a step boundary, and
         the delta-mode chunk pool already makes the *write* leg incremental
-        via the raw-digest memo.
+        via the raw-digest memo. Their chunks' content addresses are
+        computed on the device instead, beside the copies
+        (``extract_snapshot``'s ``digest_chunk``), so the host only writes.
 
         The write runs on a dedicated transient thread, not the periodic
         writer thread: an inflight periodic save must not serialize the
@@ -141,7 +143,8 @@ class AsyncCheckpointer:
         snap = sharded.extract_snapshot(
             state, step=step, mesh_info=mesh_info,
             on_device_quantize=(ser.is_moment_name
-                                if self.store.quantize_moments else None))
+                                if self.store.quantize_moments else None),
+            digest_chunk=self.store.urgent_digest_chunk)
         # discard queued-but-unstarted periodic jobs; they are older than `snap`
         try:
             while True:

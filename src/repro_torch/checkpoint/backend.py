@@ -695,8 +695,9 @@ class BackendChunkPool(chunkstore.ChunkPool):
 
     # -- write path ------------------------------------------------------------
 
-    def write(self, h: str, data, *, sync_dir: bool = True) -> int:
-        n = super().write(h, data, sync_dir=False)
+    def write(self, h: str, data, *, sync_dir: bool = True,
+              legs: chunkstore.SaveLegs | None = None) -> int:
+        n = super().write(h, data, sync_dir=False, legs=legs)
         self._schedule_upload(h)
         return n
 

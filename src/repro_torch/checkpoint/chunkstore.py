@@ -53,8 +53,10 @@ from __future__ import annotations
 import hashlib
 import os
 import threading
+import time
 import uuid
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
 from dataclasses import dataclass
 from typing import Callable, Iterator
@@ -74,6 +76,37 @@ def _retry():
     # either package half-initialized depending on which is imported first.
     from ..core import retry
     return retry
+
+
+class SaveLegs:
+    """Seconds one save spent in each of its legs, in two kinds: wall legs
+    (``*_s``), consecutive stretches of the saving thread's clock that
+    partition the save's wall time, and busy legs (``*_busy_s``), seconds
+    summed over the threads that ran the leg side by side (codec workers,
+    urgent write threads). Thread safe: those threads add to it
+    concurrently."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._s: dict[str, float] = {}
+
+    def add(self, leg: str, seconds: float) -> None:
+        with self._lock:
+            self._s[leg] = self._s.get(leg, 0.0) + seconds
+
+    def as_dict(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self._s)
+
+
+def charge_leg(legs: SaveLegs | None, leg: str, t0: float) -> float:
+    """Charge ``leg`` the seconds since ``t0`` (when legs are recorded) and
+    return the clock's new reading."""
+    t1 = time.perf_counter()
+    if legs is not None:
+        legs.add(leg, t1 - t0)
+    return t1
+
 
 CHUNKS_DIRNAME = "chunks"
 DEFAULT_CHUNK_SIZE = 1 << 20          # 1 MiB: dedup granularity vs. ref count
@@ -100,6 +133,118 @@ def urgent_executor() -> CodecLane:
     lane of the single pool it no longer competes with the shared workers
     for the same physical cores."""
     return codec_sched.lane(codec_sched.URGENT)
+
+
+#: Threads that write an urgent save's chunks. A chunk write is an open, a
+#: write, an fsync and a rename: the thread waits on the filesystem, not
+#: the CPU, so several times more of them than codec workers are in flight
+#: (a networked or virtualized volume serves many writes at once).
+URGENT_IO_THREADS = 32
+
+_io_pool: ThreadPoolExecutor | None = None
+_io_pool_lock = threading.Lock()
+
+
+def urgent_io_executor() -> ThreadPoolExecutor:
+    """The process-wide pool of urgent chunk-write threads (lazily made)."""
+    global _io_pool
+    with _io_pool_lock:
+        if _io_pool is None:
+            _io_pool = ThreadPoolExecutor(URGENT_IO_THREADS,
+                                          thread_name_prefix="spoton-urgent-io")
+        return _io_pool
+
+
+_urgent_cv = threading.Condition()
+_urgent_saves = 0
+
+
+class urgent_window:
+    """Context of an urgent save's chunk writes: while one is open, periodic
+    saves' chunk loops stop writing (``wait_out_urgent``) and lend their
+    workers to the urgent save's jobs — the notice window gets the disk and
+    the cores, and the periodic save resumes, unchanged, afterwards."""
+
+    def __enter__(self):
+        global _urgent_saves
+        with _urgent_cv:
+            _urgent_saves += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _urgent_saves
+        with _urgent_cv:
+            _urgent_saves -= 1
+            _urgent_cv.notify_all()
+        return False
+
+
+def wait_out_urgent() -> None:
+    """Between two chunks of a periodic save: hold while an urgent save is
+    writing, running its queued jobs meanwhile."""
+    while _urgent_saves:
+        if codec_sched.maybe_yield():
+            continue
+        with _urgent_cv:
+            if _urgent_saves:
+                _urgent_cv.wait(0.01)
+
+
+class ChunkWrites:
+    """An urgent save's chunk writes, issued on the urgent IO pool.
+
+    The codec workers digest (and compress) each chunk and hand the stored
+    bytes here; the write, its file fsync and the rename run on
+    ``urgent_io_executor``'s threads, so the digests never wait on the
+    disk and many writes are in flight at once. Each address is written
+    once per save (a repeated chunk — zeros, a tied leaf — dedups here as
+    the serial path dedups on the pool). ``wait`` returns the bytes
+    physically written once every write has landed: the chunk fsyncs are
+    issued in parallel, never dropped, and all of them complete before the
+    caller's directory-fsync barrier and manifest commit."""
+
+    def __init__(self, pool: "ChunkPool", dirty_dirs: set,
+                 legs: SaveLegs | None = None):
+        self.pool = pool
+        self.dirty_dirs = dirty_dirs
+        self.legs = legs
+        self._lock = threading.Lock()
+        self._hashes: set[str] = set()
+        self._futures: list[Future] = []
+
+    def submit(self, h: str, data) -> None:
+        with self._lock:
+            if h in self._hashes:
+                return
+            self._hashes.add(h)
+        try:
+            fut = urgent_io_executor().submit(self._write, h, data)
+        except RuntimeError:
+            # interpreter shutting down: an urgent save still commits, its
+            # writes run inline on the encoding thread
+            fut = Future()
+            try:
+                fut.set_result(self._write(h, data))
+            except BaseException as e:
+                fut.set_exception(e)
+        with self._lock:
+            self._futures.append(fut)
+
+    def _write(self, h: str, data) -> int:
+        n = _retry().call_with_retry(
+            lambda: self.pool.write(h, data, sync_dir=False, legs=self.legs),
+            describe=f"chunk {h[:10]} write")
+        if n and self.pool.durable_dirs:
+            self.dirty_dirs.add(os.path.dirname(self.pool.path(h)))
+        return n
+
+    def wait(self) -> int:
+        """Block until every write has finished; raise the first failure
+        only after all of them have (no write outlives its save)."""
+        with self._lock:
+            futs = list(self._futures)
+        futures_wait(futs)
+        return sum(f.result() for f in futs)
 
 
 def chunk_digest(data) -> str:
@@ -198,7 +343,8 @@ class ChunkPool:
         except OSError:
             return False
 
-    def write(self, h: str, data, *, sync_dir: bool = True) -> int:
+    def write(self, h: str, data, *, sync_dir: bool = True,
+              legs: SaveLegs | None = None) -> int:
         """Idempotent put; returns bytes physically written (0 on dedup hit).
 
         A dedup hit is size-verified: an existing file with the wrong length
@@ -210,10 +356,13 @@ class ChunkPool:
         chunks pass ``sync_dir=False`` and sync the distinct dirty dirs once
         per save (see ``store_payload_chunks``) — the durability bar is only
         that every referenced chunk's rename is durable before the manifest
-        commits, not one fsync per chunk."""
+        commits, not one fsync per chunk. ``legs`` (when given) is charged
+        the write and the file fsync apart."""
+        t0 = time.perf_counter()
         path = self.path(h)
         if self.check(h, len(data)):
             self.touch(h)
+            charge_leg(legs, "write_busy_s", t0)
             return 0
         dirpath = os.path.dirname(path)
         os.makedirs(dirpath, exist_ok=True)
@@ -222,10 +371,13 @@ class ChunkPool:
             with open(tmp, "wb") as f:
                 faults.write_bytes(f, data, op="chunk.write", path=tmp)
                 f.flush()
+                t0 = charge_leg(legs, "write_busy_s", t0)
                 faults.fault_point("chunk.fsync", tmp)
                 os.fsync(f.fileno())
+                t0 = charge_leg(legs, "fsync_busy_s", t0)
             faults.fault_point("chunk.replace", path)
             os.replace(tmp, path)   # atomic: readers never see partial chunks
+            charge_leg(legs, "write_busy_s", t0)
         except Exception:
             # Quarantine: a failed/short tmp must not survive to be mistaken
             # for progress — the retrying caller re-encodes from memory. A
@@ -330,6 +482,9 @@ def store_payload_chunks(
     index: DeltaIndex | None = None,
     pin: Callable[[str], None] = lambda h: None,
     dirty_dirs: set | None = None,
+    legs: SaveLegs | None = None,
+    writes: ChunkWrites | None = None,
+    digests: list[tuple[str, int]] | None = None,
 ) -> tuple[list[ChunkRef], int]:
     """Chunk one raw tensor payload (bytes-like) into the pool.
 
@@ -339,7 +494,11 @@ def store_payload_chunks(
     caller passes ``dirty_dirs`` (a set, shared across a save's encode jobs;
     ``set.add`` is atomic under the GIL), per-chunk directory fsyncs are
     skipped and the dirty fan-out dirs are collected instead, so the save
-    syncs each distinct dir once before its manifest commits.
+    syncs each distinct dir once before its manifest commits. With
+    ``writes`` (urgent saves) the pool writes are handed to it and the
+    bytes written come from ``writes.wait()``, not from the return value.
+    ``digests`` (one (sha1 hex, crc32) per chunk, computed on the device
+    from the same bytes) replace the host's digests of raw chunks.
     """
     if not isinstance(raw, (bytes, memoryview)):
         raw = memoryview(raw)
@@ -348,9 +507,15 @@ def store_payload_chunks(
     for ci, raw_chunk in enumerate(iter_chunks(raw, chunk_size)):
         # preemption checkpoint: a periodic-save encode hands its worker to
         # any queued restore/urgent job here, bounding their queue delay to
-        # one chunk's encode instead of one piece's
+        # one chunk's encode instead of one piece's, and holds while an
+        # urgent save writes
         codec_sched.maybe_yield()
-        rd = chunk_digest(raw_chunk)
+        if writes is None:
+            wait_out_urgent()
+        t0 = time.perf_counter()
+        rd, crc = digests[ci] if digests is not None else (
+            chunk_digest(raw_chunk), None)
+        charge_leg(legs, "hash_busy_s", t0)
         memo = index.get((key, ci)) if index is not None else None
         if (memo is not None and memo.raw_digest == rd and memo.codec == codec
                 and pool.check(memo.ref.hash, memo.ref.nbytes)):
@@ -360,7 +525,8 @@ def store_payload_chunks(
             refs.append(memo.ref)
             continue
         ref, n, _rd = store_chunk(pool, raw_chunk, comp=comp, pin=pin,
-                                  dirty_dirs=dirty_dirs, raw_digest=rd)
+                                  dirty_dirs=dirty_dirs, raw_digest=rd,
+                                  legs=legs, writes=writes, raw_crc=crc)
         written += n
         if index is not None:
             index.put((key, ci), rd, codec, ref)
@@ -371,12 +537,16 @@ def store_payload_chunks(
 def store_chunk(pool: ChunkPool, raw_chunk, *, comp: str,
                 pin: Callable[[str], None] = lambda h: None,
                 dirty_dirs: set | None = None,
-                raw_digest: str | None = None) -> tuple[ChunkRef, int, str]:
+                raw_digest: str | None = None,
+                legs: SaveLegs | None = None,
+                writes: ChunkWrites | None = None,
+                raw_crc: int | None = None) -> tuple[ChunkRef, int, str]:
     """Encode + store one raw chunk; returns (ref, bytes_written, raw sha1).
 
     The per-chunk body of ``store_payload_chunks``, shared with the
     device-delta write path (which brings its own skip decision — the
     fingerprint — and only reaches here for dirty blocks)."""
+    t0 = time.perf_counter()
     rd = raw_digest if raw_digest is not None else chunk_digest(raw_chunk)
     enc = ser.compress_bytes(raw_chunk, comp)
     k = comp or "raw"
@@ -384,19 +554,24 @@ def store_chunk(pool: ChunkPool, raw_chunk, *, comp: str,
         enc, k = raw_chunk, "raw"             # compression didn't pay here
     # stored-raw chunks share the raw digest — don't hash 2x
     h = rd if enc is raw_chunk else chunk_digest(enc)
+    crc = raw_crc if raw_crc is not None and enc is raw_chunk else zlib.crc32(enc)
+    charge_leg(legs, "hash_busy_s", t0)
     pin(h)
+    ref = ChunkRef(hash=h, nbytes=len(enc), raw_len=len(raw_chunk),
+                   crc32=crc, comp=k)
+    if writes is not None:
+        writes.submit(h, enc)
+        return ref, 0, rd
     # Transient write faults (EIO-class) retry with backoff; pool.write
     # unlinks its quarantined tmp first, so each attempt re-lands the full
     # encoded payload. ENOSPC and friends are persistent and surface
     # immediately — the coordinator's degradation policy owns those.
     n = _retry().call_with_retry(
         lambda: pool.write(h, enc, sync_dir=dirty_dirs is None
-                           and pool.durable_dirs),
+                           and pool.durable_dirs, legs=legs),
         describe=f"chunk {h[:10]} write")
     if n and dirty_dirs is not None and pool.durable_dirs:
         dirty_dirs.add(os.path.dirname(pool.path(h)))
-    ref = ChunkRef(hash=h, nbytes=len(enc), raw_len=len(raw_chunk),
-                   crc32=zlib.crc32(enc), comp=k)
     return ref, n, rd
 
 

@@ -170,7 +170,7 @@ class _Staged:
         ent = self.ent
         if len(dirty) > self.tracker.dense_fallback_frac * len(ent.refs):
             self.dense = True
-            self.dense_copy = HostCopy(self.leaf)
+            self.dense_copy = HostCopy(self.leaf, staged=True)
             return
         now = time.monotonic()
         if now - ent.verified_at > self.tracker.touch_interval_s:
@@ -447,8 +447,10 @@ def write_delta_blocks_piece(pool: chunkstore.ChunkPool, key: tuple,
             refs.append(ref)
             continue
         # periodic-save encode: hand the worker to queued restore/urgent
-        # jobs between blocks (chunk-granular preemption)
+        # jobs between blocks (chunk-granular preemption), and hold while
+        # an urgent save writes
         codec_sched.maybe_yield()
+        chunkstore.wait_out_urgent()
         ref, n, rd = chunkstore.store_chunk(
             pool, db.dirty_view(j, ci), comp=comp, pin=pin,
             dirty_dirs=dirty_dirs)

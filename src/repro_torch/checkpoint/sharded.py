@@ -29,6 +29,7 @@ one whole-tensor piece per leaf.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -66,6 +67,9 @@ class LeafPieces:
     py_type: str = ""
     prequant: str = ""             # "int8": pieces hold on-device-quantized data
     scale: float | None = None     # absmax scale when prequant
+    # (sha1 hex, crc32) of each chunk of the single piece's raw payload,
+    # computed on the device (urgent saves; ``kernels.chunk_digest``)
+    digests: list[tuple[str, int]] | None = None
 
 
 @dataclass
@@ -84,9 +88,25 @@ class Snapshot:
     d2h_bytes: int = 0
     d2h_skipped: int = 0
     stall_s: float = 0.0
+    # seconds per leg of this save (``chunkstore.SaveLegs``): extract adds
+    # the pinned allocation and the copy wait, the store the write's legs
+    legs: chunkstore.SaveLegs = field(default_factory=chunkstore.SaveLegs)
+    # the chunk size the leaves' device ``digests`` were taken at
+    digest_chunk: int | None = None
+    # the staged host copies behind ``leaves`` (``hostcopy.STAGING``
+    # buffers), given back by ``release_staging`` once the save is written
+    staging: list[HostCopy] = field(default_factory=list)
     # invoked by the store with the final manifest records once this
     # snapshot's checkpoint is durably committed (device-delta bookkeeping)
     on_committed: Callable[[list[dict]], None] | None = None
+
+    def release_staging(self) -> None:
+        """Give the staged pinned buffers back for the next save. The
+        leaves they held are dropped: their arrays viewed those buffers."""
+        released = [cp.release() for cp in self.staging]
+        self.staging = []
+        if any(released):
+            self.leaves = {}
 
 
 @dataclass
@@ -127,7 +147,7 @@ def prestage(state, tracker: DeviceDeltaTracker | None = None, *,
         if tracker is not None and tracker.prestage_leaf(name, leaf):
             continue
         if name not in copies:
-            copies[name] = HostCopy(leaf)
+            copies[name] = HostCopy(leaf, staged=True)
     return Prestaged(state, copies)
 
 
@@ -135,9 +155,55 @@ def _is_py_scalar(leaf) -> bool:
     return isinstance(leaf, (int, float, bool)) and not isinstance(leaf, np.generic)
 
 
+def urgent_staging_sizes(state, *, quantize_moments: bool) -> list[int]:
+    """The pinned buffer sizes an urgent save of ``state`` takes from
+    ``STAGING``: each CUDA tensor leaf's bytes, at one byte an element for
+    the moments a quantize-moments store quantizes on the device."""
+    state, _copies = _unwrap(state)
+    sizes = []
+    for name, leaf in ser.flatten_state(state).items():
+        if not isinstance(leaf, torch.Tensor) or leaf.device.type != "cuda":
+            continue
+        int8 = (quantize_moments and leaf.ndim >= 1
+                and leaf.dtype.is_floating_point and ser.is_moment_name(name))
+        sizes.append(leaf.numel() * (1 if int8 else leaf.element_size()))
+    return [n for n in sizes if n]
+
+
+def _digest_on_device(copies, digest_chunk):
+    """Launch the chunk digests of the CUDA copies whose chunks the store
+    keeps raw (``digest_chunk``): one ``chunk_digests`` call over the
+    contiguous tensors the copies read, a misaligned one cloned first.
+    Returns (chunk size, names, pending digests), or None when no leaf is
+    digested. A CUDA leaf the kernel cannot read raises."""
+    from ..kernels.chunk_digest import chunk_digests, digestible
+    names, tensors, sizes = [], [], set()
+    for n, cp in copies:
+        if not (isinstance(cp.src, torch.Tensor)
+                and cp.src.device.type == "cuda"):
+            continue                    # a host leaf: the write digests it
+        if cp.device is None:
+            raise RuntimeError(f"{n}: its host copy was already waited on")
+        size = digest_chunk(n, cp.device)
+        if size is None:
+            continue
+        t = cp.device if digestible(cp.device) else cp.device.clone()
+        names.append(n)
+        tensors.append(t)
+        sizes.add(size)
+    if not names:
+        return None
+    if len(sizes) != 1:
+        raise ValueError(f"leaves digested at several chunk sizes: {sizes}")
+    (size,) = sizes
+    return size, names, chunk_digests(tensors, size)
+
+
 def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
                      on_device_quantize: Callable[[str], bool] | None = None,
                      tracker: DeviceDeltaTracker | None = None,
+                     digest_chunk: Callable[[str, torch.Tensor], int | None]
+                     | None = None,
                      ) -> Snapshot:
     """Freeze ``state`` to host memory.
 
@@ -150,6 +216,14 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
     fingerprints are on the device take the dirty-block path.
     ``on_device_quantize`` and ``tracker`` are mutually exclusive — urgent
     saves bypass fingerprinting.
+
+    With ``digest_chunk`` (urgent saves: the store's
+    ``urgent_digest_chunk``), every CUDA leaf copied whole for which
+    ``digest_chunk(name, tensor)`` (the tensor the copy reads) names a
+    chunk size — the store keeps its chunks as those bytes — also gets each
+    chunk's SHA-1 and CRC-32 on the device (``kernels.chunk_digest``, one
+    launch beside the copies), so the write that follows does not digest it
+    on the host.
     """
     t_stall0 = time.perf_counter()
     state, copies = _unwrap(state)
@@ -167,7 +241,7 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
                     and leaf.dtype.is_floating_point
                     and on_device_quantize(name)):
                 q, scale = quantize_int8(leaf.detach())
-                prequant[name] = (HostCopy(q), scale)
+                prequant[name] = (HostCopy(q, staged=True), scale)
     staged: dict[str, HostCopy] = {}
     for name, leaf in named.items():                # phase 1: async staging
         if name in tracked:
@@ -176,7 +250,17 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
         if name in prequant or not isinstance(leaf, torch.Tensor):
             continue
         cp = copies.get(name)
-        staged[name] = cp if cp is not None and cp.src is leaf else HostCopy(leaf)
+        staged[name] = (cp if cp is not None and cp.src is leaf
+                        else HostCopy(leaf, staged=True))
+    legs = chunkstore.SaveLegs()
+    legs.add("pin_alloc_busy_s", sum(cp.alloc_s for cp in staged.values())
+             + sum(cp.alloc_s for cp, _scale in prequant.values()))
+    digests = None
+    if digest_chunk is not None:
+        digests = _digest_on_device(
+            [*staged.items(), *((n, cp) for n, (cp, _s) in prequant.items())],
+            digest_chunk)
+    t_wait = time.perf_counter()
     leaves: dict[str, LeafPieces] = {}
     nbytes = 0
     d2h_bytes = 0
@@ -214,11 +298,21 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
         nbytes += arr.nbytes
         d2h_bytes += arr.nbytes
         leaves[name] = lp
+    chunk = None
+    if digests is not None:
+        chunk, names, pending = digests
+        for n, per_chunk in zip(names, pending.result()):
+            leaves[n].digests = per_chunk
+    t_end = time.perf_counter()
+    legs.add("d2h_wait_s", t_end - t_wait)
+    legs.add("extract_s", t_end - t_stall0)
     return Snapshot(step=step, leaves=leaves, leaf_order=leaf_order,
                     treedef_repr=ser.structure_repr(state),
                     mesh=mesh_info or {}, nbytes=nbytes, d2h_bytes=d2h_bytes,
-                    d2h_skipped=d2h_skipped,
-                    stall_s=time.perf_counter() - t_stall0,
+                    d2h_skipped=d2h_skipped, stall_s=t_end - t_stall0,
+                    legs=legs, digest_chunk=chunk,
+                    staging=[*staged.values(),
+                                        *(cp for cp, _s in prequant.values())],
                     on_committed=commit_cb)
 
 
@@ -265,10 +359,18 @@ def write_snapshot(
 
 
 def _delta_encode_piece(pool, key, arr, codec, chunk_size, index, pin,
-                        prequant_scale=None, dirty_dirs=None, dtype_name=None):
-    """Worker-pool task: quantize one piece, chunk it into the pool."""
+                        prequant_scale=None, dirty_dirs=None, dtype_name=None,
+                        legs=None, writes=None, digests=None):
+    """Worker-pool task: quantize one piece, chunk it into the pool. Device
+    ``digests`` of the piece's bytes stand in for the host's; they are
+    given only where the stored chunks are those bytes (no host quantize,
+    no compression: the store's ``urgent_digest_chunk``)."""
     codec = ser.resolve_codec(codec)
     quant, comp = ser.split_codec(codec)
+    if digests is not None and (comp not in ("", "raw")
+                                or (quant and prequant_scale is None)):
+        raise ValueError(f"{key}: device digests given for chunks stored "
+                         f"as {codec}")
     if prequant_scale is not None:
         raw, scale = np.ascontiguousarray(arr), prequant_scale
     else:
@@ -276,7 +378,8 @@ def _delta_encode_piece(pool, key, arr, codec, chunk_size, index, pin,
     nbytes = raw.nbytes
     refs, written = chunkstore.store_payload_chunks(
         pool, key, ser.array_bytes_view(raw), codec=codec, comp=comp,
-        chunk_size=chunk_size, index=index, pin=pin, dirty_dirs=dirty_dirs)
+        chunk_size=chunk_size, index=index, pin=pin, dirty_dirs=dirty_dirs,
+        legs=legs, writes=writes, digests=digests)
     return codec, scale, refs, written, nbytes
 
 
@@ -290,48 +393,69 @@ def write_snapshot_delta(
     index: chunkstore.DeltaIndex | None = None,
     pin=lambda h: None,
     executor=None,
+    urgent: bool = False,
 ) -> tuple[list[dict], int]:
     """Incremental write: every piece chunked into the shared pool.
 
     Returns (manifest tensor records, bytes physically written). Every chunk
     a manifest references is durable before this returns (per-save
     dir-fsync barrier for a POSIX pool; a backend pool's ``flush_uploads``
-    barrier runs in the store).
+    barrier runs in the store). The chunk and directory-fsync legs are
+    charged to ``snapshot.legs``. An ``urgent`` (termination) save digests
+    on ``executor`` and writes on the urgent IO pool
+    (``chunkstore.ChunkWrites``).
     """
+    if snapshot.digest_chunk not in (None, chunk_size):
+        raise ValueError(f"leaves digested at {snapshot.digest_chunk}-byte "
+                         f"chunks, written at {chunk_size}")
     ex = executor if executor is not None else chunkstore.codec_executor()
+    legs = snapshot.legs
+    t0 = time.perf_counter()
     jobs = []
     dirty_dirs: set[str] = set()    # fan-out dirs with new chunks this save
-    for name, lp in snapshot.leaves.items():
-        for pi, (idx, arr) in enumerate(lp.pieces):
-            if isinstance(arr, DeltaBlocks):
-                fut = ex.submit(write_delta_blocks_piece, pool, (name, pi),
-                                arr, index, pin, dirty_dirs)
+    writes = chunkstore.ChunkWrites(pool, dirty_dirs, legs) if urgent else None
+    # an urgent save holds periodic saves' chunk writes while it writes
+    with chunkstore.urgent_window() if urgent else contextlib.nullcontext():
+        for name, lp in snapshot.leaves.items():
+            for pi, (idx, arr) in enumerate(lp.pieces):
+                if isinstance(arr, DeltaBlocks):
+                    fut = ex.submit(write_delta_blocks_piece, pool, (name, pi),
+                                    arr, index, pin, dirty_dirs)
+                    jobs.append((name, pi, idx, lp, arr, fut))
+                    continue
+                arr = np.asarray(arr)
+                codec = _piece_codec(name, lp, arr, compress=compress,
+                                     quantize_moments=quantize_moments)
+                fut = ex.submit(_delta_encode_piece, pool, (name, pi), arr,
+                                codec, chunk_size, index, pin,
+                                lp.scale if lp.prequant else None, dirty_dirs,
+                                lp.dtype, legs, writes, lp.digests)
                 jobs.append((name, pi, idx, lp, arr, fut))
-                continue
-            arr = np.asarray(arr)
-            codec = _piece_codec(name, lp, arr, compress=compress,
-                                 quantize_moments=quantize_moments)
-            fut = ex.submit(_delta_encode_piece, pool, (name, pi), arr, codec,
-                            chunk_size, index, pin,
-                            lp.scale if lp.prequant else None, dirty_dirs,
-                            lp.dtype)
-            jobs.append((name, pi, idx, lp, arr, fut))
-    try:
-        results = [fut.result() for *_rest, fut in jobs]
-    except BaseException:
-        # quiesce before propagating: a straggler task must not call pin()
-        # after the caller has already unpinned this save's chunks
-        for *_rest, fut in jobs:
-            fut.cancel()
-        futures_wait([fut for *_rest, fut in jobs])
-        raise
-    if dirty_dirs:
-        sync_futs = [ex.submit(fsync_dir, d) for d in dirty_dirs]
-        futures_wait(sync_futs)
-        for sf in sync_futs:
-            sf.result()
+        try:
+            results = [fut.result() for *_rest, fut in jobs]
+        except BaseException:
+            # quiesce before propagating: a straggler task must not call pin()
+            # after the caller has already unpinned this save's chunks, nor a
+            # straggler write land after the save has failed
+            for *_rest, fut in jobs:
+                fut.cancel()
+            futures_wait([fut for *_rest, fut in jobs])
+            if writes is not None:
+                try:
+                    writes.wait()
+                except BaseException:
+                    pass                # the first failure is the one raised
+            raise
+        deferred_bytes = writes.wait() if writes is not None else 0
+        t0 = chunkstore.charge_leg(legs, "chunks_s", t0)
+        if dirty_dirs:
+            sync_futs = [ex.submit(fsync_dir, d) for d in dirty_dirs]
+            futures_wait(sync_futs)
+            for sf in sync_futs:
+                sf.result()
+        chunkstore.charge_leg(legs, "dir_fsync_s", t0)
     records = []
-    new_bytes = 0
+    new_bytes = deferred_bytes
     for (name, pi, idx, lp, arr, fut), res in zip(jobs, results):
         codec, scale, refs, written, raw_len = res
         new_bytes += written

@@ -31,12 +31,13 @@ import time
 import uuid
 from collections import Counter
 from concurrent.futures import CancelledError
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from . import backend as backend_mod
 from . import chunkstore
 from . import manifest as mf
+from . import serialize as ser
 from . import sharded
 from ..faults import inject as faults
 from .ioutil import fsync_dir
@@ -60,6 +61,10 @@ class CheckpointInfo:
     # in the local spool and the staged manifest commits in reconcile once
     # every ref is durable — latest_valid() does NOT see it yet
     spooled: bool = False
+    # seconds per leg of the save (``chunkstore.SaveLegs.as_dict``): the
+    # extract's pinned allocation and copy wait, the chunk encode and
+    # write, the directory fsyncs, the manifest and the commit
+    legs: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -245,6 +250,7 @@ class CheckpointStore:
     def save_snapshot(self, snapshot: sharded.Snapshot, *, kind: str = "transparent",
                       extra: dict | None = None) -> CheckpointInfo:
         t0 = self.time_fn()
+        legs = snapshot.legs
         if self._spooled_commits:
             # outage backlog first: parked steps must commit in order before
             # a newer step lands, and a reachable store drains them cheaply
@@ -273,7 +279,8 @@ class CheckpointStore:
                     chunk_size=self.chunk_size, index=self._delta_index,
                     pin=lambda h: self._pin(h, pinned),
                     executor=(chunkstore.urgent_executor()
-                              if kind == "termination" else None))
+                              if kind == "termination" else None),
+                    urgent=kind == "termination")
             else:
                 records = sharded.write_snapshot(
                     stage, snapshot, compress=self.compress,
@@ -287,7 +294,9 @@ class CheckpointStore:
                 extra={**self.tags, **(extra or {})},
                 format_version=2 if self.mode == "delta" else 1,
                 chunk_size=self.chunk_size if self.mode == "delta" else None)
+            w1 = time.perf_counter()
             mf.write_manifest(stage, man)
+            w1 = chunkstore.charge_leg(legs, "manifest_s", w1)
             self._phase("manifest_written")
             # Durability barrier before commit: with an object-store backend
             # every pipelined chunk upload must have landed before the
@@ -311,10 +320,14 @@ class CheckpointStore:
                     "reconcile", snapshot.step, len(undurable))
             else:
                 we_committed = self._finish_commit(stage, final, kind)
+            chunkstore.charge_leg(legs, "commit_s", w1)
         except BaseException:
             # leave staging dir for post-mortem; it is invisible to readers
             raise
         finally:
+            # the payload is on disk (or the save failed): the staged pinned
+            # buffers go back for the next save
+            snapshot.release_staging()
             # a parked save stays a live writer: its stage must survive gc
             # and its chunk pins must hold until reconcile commits it
             if not parked:
@@ -335,16 +348,10 @@ class CheckpointStore:
                 logging.getLogger("spoton").warning(
                     "post-commit delta bookkeeping failed: %s", e)
         nbytes = sum(r["nbytes"] for r in records)
-        info = CheckpointInfo(step=snapshot.step, path=final, kind=kind,
-                              nbytes=nbytes, elapsed_s=self.time_fn() - t0,
-                              new_bytes=new_bytes,
-                              d2h_bytes=snapshot.d2h_bytes or snapshot.nbytes,
-                              d2h_bytes_skipped=snapshot.d2h_skipped,
-                              save_stall_ms=snapshot.stall_s * 1e3,
-                              spooled=parked)
         # sweep_chunks=None: walk the pool only when retention actually
         # dropped a step — a full pool scan on every commit would sit inside
         # the urgent termination path for no reclaimable garbage
+        w1 = time.perf_counter()
         self.gc(sweep_chunks=None)
         for cb in self.post_commit:
             try:
@@ -352,7 +359,29 @@ class CheckpointStore:
             except Exception as e:  # pragma: no cover - defensive
                 logging.getLogger("spoton").warning(
                     "post-commit hook failed: %s", e)
-        return info
+        chunkstore.charge_leg(legs, "gc_s", w1)
+        return CheckpointInfo(step=snapshot.step, path=final, kind=kind,
+                              nbytes=nbytes, elapsed_s=self.time_fn() - t0,
+                              new_bytes=new_bytes,
+                              d2h_bytes=snapshot.d2h_bytes or snapshot.nbytes,
+                              d2h_bytes_skipped=snapshot.d2h_skipped,
+                              save_stall_ms=snapshot.stall_s * 1e3,
+                              spooled=parked, legs=legs.as_dict())
+
+    def urgent_digest_chunk(self, name: str, t) -> int | None:
+        """The chunk size at which an urgent save digests leaf ``name`` on
+        the device (``t``: the tensor whose bytes are copied — int8 for a
+        moment quantized on the device): the pool's, where this store keeps
+        the leaf's chunks as those very bytes. None on a full-mode store
+        (shard files, no chunks) and where the write quantizes or
+        compresses — the policy the write applies (``_piece_codec``)."""
+        if self.mode != "delta":
+            return None
+        codec = ser.codec_for_meta(
+            name, ser.dtype_to_name(t.dtype), t.numel() * t.element_size(),
+            ndim=t.ndim, compress=self.compress,
+            quantize_moments=self.quantize_moments)
+        return self.chunk_size if codec == "raw" else None
 
     def save(self, step: int, state, *, kind: str = "transparent",
              mesh_info: dict | None = None, extra: dict | None = None,

@@ -56,8 +56,10 @@ from typing import Any, Callable
 from ..checkpoint import backend as chunk_backend
 from ..checkpoint import codec_sched
 from ..checkpoint.async_ckpt import AsyncCheckpointer
+from ..checkpoint.hostcopy import STAGING
 from ..checkpoint.serialize import is_moment_name
-from ..checkpoint.sharded import Snapshot, extract_snapshot, prestage
+from ..checkpoint.sharded import (Snapshot, extract_snapshot, prestage,
+                                  urgent_staging_sizes)
 from ..checkpoint.store import CheckpointStore
 from ..faults import inject as fault_inject
 from . import retry
@@ -86,6 +88,15 @@ def _storage_fault(exc: BaseException | None) -> bool:
         exc = exc.__cause__ or exc.__context__
         seen += 1
     return False
+
+
+#: The wall legs of an urgent save, in order: the copy kick, the extract
+#: (pinned allocation and the device-to-host wait), the chunk encode and
+#: write with its file fsyncs, the directory fsyncs, the manifest, the
+#: commit, and the store's post-commit gc. With ``other_s`` (the writer
+#: thread's hand-off and staging) they sum to ``wall_s``.
+URGENT_WALL_LEGS = ("prestage_s", "extract_s", "chunks_s", "dir_fsync_s",
+                    "manifest_s", "commit_s", "gc_s")
 
 
 class Signal(enum.Enum):
@@ -221,6 +232,10 @@ class SpotOnCoordinator:
                 quantize_moments=store.quantize_moments)
         self._metadata: Any = None
         self._instance_name: str | None = None
+        # host seconds of the last urgent save's legs (``URGENT_WALL_LEGS``
+        # partition ``wall_s``; ``*_busy_s`` sum the threads' time);
+        # empty when that save did not commit
+        self.last_urgent_legs: dict[str, float] = {}
         self._last_periodic_at = clock.now()
         self._handled_notices: set[str] = set()
         self._last_poll_at = -float("inf")
@@ -403,6 +418,10 @@ class SpotOnCoordinator:
                 self._mark_degraded(e)
             return False
         self._account_extract(snap)
+        # the next urgent save's pinned buffers, pinned in the background
+        # while training goes on, so the notice window pins none
+        STAGING.reserve(urgent_staging_sizes(
+            state, quantize_moments=self.store.quantize_moments))
         # the extract leg is charged on the bytes that actually crossed the
         # link (the fingerprint path makes this ≪ state size at low churn);
         # only the write leg is conditional — async overlaps it with
@@ -423,6 +442,7 @@ class SpotOnCoordinator:
         """Opportunistic: returns False if the notice window was missed."""
         t0 = self.clock.now()
         budget = deadline - t0
+        self.last_urgent_legs = {}
         if budget <= 0:
             self.stats.termination_failures += 1
             return False
@@ -431,15 +451,19 @@ class SpotOnCoordinator:
         # discard — so the prestage is the plain full-state copy kick; on a
         # quantize-moments store the moments are left out of it, since the
         # extract quantizes them on the device and copies them at 1/4 width
+        w0 = _time.perf_counter()
         state = prestage(state, skip=(is_moment_name
                                       if self.store.quantize_moments else None))
+        prestage_s = _time.perf_counter() - w0
         try:
             if self._async is not None:
                 info = self._async.save_urgent(step, state, mesh_info=self.mesh_info,
                                                extra=self._tags(),
                                                timeout_s=max(budget, 0.1))
             else:
-                snap = extract_snapshot(state, step=step, mesh_info=self.mesh_info)
+                snap = extract_snapshot(
+                    state, step=step, mesh_info=self.mesh_info,
+                    digest_chunk=self.store.urgent_digest_chunk)
                 info = self.store.save_snapshot(snap, kind="termination",
                                                 extra=self._tags())
         except (TimeoutError, RuntimeError, OSError) as e:
@@ -462,6 +486,11 @@ class SpotOnCoordinator:
             self.stats.termination_failures += 1
             return False
         self.ledger.charge(cost, category="ckpt")
+        legs = dict(info.legs, prestage_s=prestage_s,
+                    wall_s=_time.perf_counter() - w0)
+        legs["other_s"] = legs["wall_s"] - sum(legs.get(k, 0.0)
+                                               for k in URGENT_WALL_LEGS)
+        self.last_urgent_legs = legs
         self.stats.termination_ckpts += 1
         self.stats.ckpt_bytes_written += info.new_bytes
         self.stats.ckpt_time_s += (self.clock.now() - t0)

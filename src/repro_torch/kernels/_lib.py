@@ -39,7 +39,8 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"fingerprint": 0,
+LAUNCHES: dict[str, int] = {# an urgent save's chunk addresses and CRCs
+                            "chunk_digest": 0, "fingerprint": 0,
                             # the fingerprint's second launch: each
                             # block's slice sums to its digest and diff
                             "fingerprint_final": 0, "absmax": 0, "quantize": 0,
@@ -73,6 +74,8 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 _SIGNATURES = {
+    # (desc, n_chunks, sha, crc, stream)
+    "spot_chunk_digest": (_P, _I64, _P, _P, _P),
     # (x, nbytes, itemsize, block_bytes, slice_bytes, n_blocks, partial, stream)
     "spot_fingerprint_partials": (_P, _I64, _I32, _I64, _I64, _I64, _P, _P),
     # (partial, n_blocks, slices_per_block, out, old|NULL, diff|NULL, stream)

@@ -15,6 +15,8 @@ dependencies:
 
 Without a GPU every test skips: the kernels have no CPU mode."""
 
+import shutil
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1024,3 +1026,207 @@ def test_moe_train_steps_repeat_bit_for_bit(deterministic):
     assert any(n.endswith("/row") for n in f1)
     for n in f1:
         assert same_bits(f1[n], f2[n]), n
+
+
+# -- the urgent save on the card: device chunk digests, legs ----------------
+
+DIGEST_GPU_CASES = [
+    (torch.float32, 3 * CHUNK // 4 + 17, 1 << 20),
+    (torch.bfloat16, 2 * CHUNK + 1, 4096),
+    (torch.int8, 5 * CHUNK + 333, 64),
+    (torch.int32, 1, 64),
+    (torch.float32, 0, 4096),
+    (torch.float32, (1 << 18) + 3, 1 << 20),    # a short last chunk
+]
+
+
+@pytest.mark.parametrize("dtype,n,chunk", DIGEST_GPU_CASES)
+def test_chunk_digest_kernel_matches_hashlib_and_zlib(cuda, dtype, n, chunk):
+    from repro_torch.kernels.chunk_digest import (chunk_digests,
+                                                  chunk_digests_ref)
+    x = payload(dtype, n)
+    before = _lib.LAUNCHES["chunk_digest"]
+    got = chunk_digests([x.to(cuda)], chunk).result()
+    assert got == [chunk_digests_ref(x, chunk)]
+    assert _lib.LAUNCHES["chunk_digest"] == before + (1 if n else 0)
+
+
+def test_chunk_digest_kernel_one_launch_for_many_leaves(cuda):
+    from repro_torch.kernels.chunk_digest import (chunk_digests,
+                                                  chunk_digests_ref)
+    xs = [payload(dt, n, seed=i) for i, (dt, n, _c) in enumerate(DIGEST_GPU_CASES)]
+    before = _lib.LAUNCHES["chunk_digest"]
+    got = chunk_digests([x.to(cuda) for x in xs], 4096).result()
+    assert got == [chunk_digests_ref(x, 4096) for x in xs]
+    assert _lib.LAUNCHES["chunk_digest"] == before + 1
+
+
+def test_chunk_digest_refuses_a_misaligned_view(cuda):
+    from repro_torch.kernels.chunk_digest import chunk_digests
+    x = torch.zeros(1025, dtype=torch.int8, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        chunk_digests([x], 64)
+
+
+def _card_state(cuda, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"params": {"w": torch.randn(1536, 1024, generator=g).to(
+                           torch.bfloat16).to(cuda),
+                       "b": torch.randn(4099, generator=g).to(cuda)},
+            "opt": {"mu": {"w": torch.randn(1536, 1024, generator=g).to(cuda)}},
+            "step": 3}
+
+
+def _flat(state):
+    return ser.flatten_state(state)
+
+
+def test_urgent_save_digests_on_the_card_and_its_legs_sum(cuda, tmp_path):
+    """An urgent save of a card state: its chunks' addresses come from the
+    digest kernel, the pool's files hash to them, the restore is bitwise,
+    and the legs partition the save's wall time."""
+    import hashlib
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core import (CheckpointPolicy, Signal,
+                                  SimulatedMetadataService, SpotOnCoordinator,
+                                  TimeModel, VirtualClock)
+    from repro_torch.core.coordinator import URGENT_WALL_LEGS
+    from repro_torch.train import state_template_on_device
+    clock = VirtualClock()
+    store = CheckpointStore(str(tmp_path), time_fn=clock.now, compress=False)
+    coord = SpotOnCoordinator(store, CheckpointPolicy.transparent(1e9), clock,
+                              time_model=TimeModel())
+    md = SimulatedMetadataService(clock, "vm-0")
+    coord.attach_instance(md, "vm-0")
+    state = _card_state(cuda)
+    md.simulate_eviction()
+    clock.advance(1.0)
+    before = _lib.LAUNCHES["chunk_digest"]
+    assert coord.on_step_end(3, lambda: state) is Signal.PREEMPTING
+    assert _lib.LAUNCHES["chunk_digest"] == before + 1
+    legs = coord.last_urgent_legs
+    coord.close()
+    assert legs["other_s"] >= 0
+    assert sum(legs[k] for k in URGENT_WALL_LEGS) + legs["other_s"] == \
+        pytest.approx(legs["wall_s"], rel=1e-9, abs=1e-9)
+    assert legs["hash_busy_s"] < legs["chunks_s"]
+    for h, path in store.pool.all_chunks():
+        with open(path, "rb") as f:
+            assert hashlib.sha1(f.read()).hexdigest() == h
+    got, man = store.restore(state_template_on_device(state, cuda))
+    assert man.kind == "termination"
+    for n, t in _flat(state).items():
+        assert same_bits(_flat(got)[n], t) if isinstance(t, torch.Tensor) \
+            else _flat(got)[n] == t
+
+
+def test_urgent_save_digests_every_card_leaf_it_keeps_raw(cuda, tmp_path):
+    """A transposed and a misaligned leaf are digested by the kernel too
+    (from the contiguous tensor the copy reads; the misaligned one cloned),
+    the moments a quantize-moments store compresses are not, the staging
+    set is the leaves' copy sizes, and every pool file hashes to its name."""
+    import hashlib
+    from repro_torch.checkpoint import CheckpointStore, sharded
+    store = CheckpointStore(str(tmp_path), chunk_size=CHUNK,
+                            quantize_moments=True)
+    g = torch.Generator().manual_seed(5)
+    base = torch.randn(3 * CHUNK + 1, generator=g).to(torch.bfloat16)
+    state = {"params": {"t": torch.randn(384, 256, generator=g).to(cuda).t(),
+                        "m": base.to(cuda)[1:]},     # 2 bytes off the 4
+             "opt": {"mu": {"w": torch.randn(256, 512, generator=g).to(cuda)}},
+             "step": 1}
+    assert state["params"]["m"].data_ptr() % 4 == 2
+    assert sorted(sharded.urgent_staging_sizes(state, quantize_moments=True)) \
+        == sorted([384 * 256 * 4, 3 * CHUNK * 2, 256 * 512])
+    before = _lib.LAUNCHES["chunk_digest"]
+    snap = sharded.extract_snapshot(
+        sharded.prestage(state, skip=ser.is_moment_name), step=1,
+        on_device_quantize=ser.is_moment_name,
+        digest_chunk=store.urgent_digest_chunk)
+    assert _lib.LAUNCHES["chunk_digest"] == before + 1
+    for n, lp in snap.leaves.items():
+        t = _flat(state)[n]
+        if lp.prequant:                 # the copy read the int8 payload
+            t = torch.empty(t.shape, dtype=torch.int8, device=cuda)
+        raw = isinstance(t, torch.Tensor) and \
+            store.urgent_digest_chunk(n, t) is not None
+        assert (lp.digests is not None) == raw, n
+    if not ser.HAVE_ZSTD:       # float payloads stay raw, int8 ones zlib
+        assert snap.leaves["params/t"].digests
+        assert snap.leaves["params/m"].digests
+        assert snap.leaves["opt/mu/w"].digests is None
+    store.save_snapshot(snap, kind="termination")
+    for h, path in store.pool.all_chunks():
+        with open(path, "rb") as f:
+            assert hashlib.sha1(f.read()).hexdigest() == h
+    from repro_torch.train import state_template_on_device
+    got, _man = store.restore(state_template_on_device(state, cuda))
+    for n in ("params/t", "params/m"):
+        assert same_bits(_flat(got)[n], _flat(state)[n]), n
+
+
+def test_delta_save_after_a_2_3_2_rescale_launches_the_fingerprint(cuda,
+                                                                   tmp_path):
+    from repro_torch.checkpoint import CheckpointStore, DeviceDeltaTracker
+    from repro_torch.core.elastic import fleet_mesh_plan, member_addressable
+    from repro_torch.train import state_template_on_device
+    store = CheckpointStore(str(tmp_path), chunk_size=CHUNK)
+    tracker = DeviceDeltaTracker(store.pool, chunk_size=store.chunk_size,
+                                 compress=store.compress)
+    state = _card_state(cuda, seed=1)
+    store.save(0, state, tracker=tracker)
+    w = state["opt"]["mu"]["w"].clone()
+    w[0, 0] += 1.0
+    state["opt"]["mu"]["w"] = w
+    store.save(1, state, tracker=tracker)
+    # two leaves are tracked: the bf16 and the float32 matrix ("b" is under
+    # the tracker's 64 KiB floor and takes the dense path)
+    for n in (3, 2):
+        res = tracker.rescale(member_addressable(
+            fleet_mesh_plan(n, model_parallel=1), 0))
+        assert res == {"kept": 2, "dropped": 0}
+    w = state["opt"]["mu"]["w"].clone()
+    w[7, 9] -= 1.0
+    state["opt"]["mu"]["w"] = w
+    fp0 = _lib.LAUNCHES["fingerprint"]
+    info = store.save(2, state, tracker=tracker)
+    full = sum(t.numel() * t.element_size() for t in _flat(state).values()
+               if isinstance(t, torch.Tensor))
+    assert _lib.LAUNCHES["fingerprint"] - fp0 == 2
+    assert info.d2h_bytes_skipped > 0 and info.d2h_bytes < full / 2
+    got, man = store.restore(state_template_on_device(state, cuda))
+    assert man.step == 2
+    for n, t in _flat(state).items():
+        if isinstance(t, torch.Tensor):
+            assert same_bits(_flat(got)[n], t)
+
+
+def test_peer_warm_restore_onto_the_card_is_bitwise(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointStore, FleetPeerExchange
+    from repro_torch.train import state_template_on_device
+    store = CheckpointStore(str(tmp_path / "store"), chunk_size=CHUNK)
+    state = _card_state(cuda, seed=2)
+    store.save(1, state)
+    man, reader = store.latest_valid()
+    reader.close()
+    exchange = FleetPeerExchange(str(tmp_path / "fabric"), 3,
+                                 budget_bytes=40 * CHUNK)
+    try:
+        seed = exchange.seed_from(0, store.pool, sorted(man.chunk_hashes()))
+        assert 0 < seed["chunks"] < len(man.chunk_hashes())
+        template = state_template_on_device(state, cuda)
+        want, _ = store.restore(template, streaming=True)
+        for down in (False, True):
+            if down:
+                exchange.members[1][1].close()
+            rt = exchange.read_through(0, store.pool)
+            got, _ = store.restore(template, streaming=True, chunk_pool=rt)
+            for n, t in _flat(want).items():
+                if isinstance(t, torch.Tensor):
+                    assert _flat(got)[n].device.type == "cuda"
+                    assert same_bits(_flat(got)[n], t)
+            assert rt.stats["peer_hits"] == seed["chunks"]
+            assert rt.stats["store_reads"] > 0
+            shutil.rmtree(exchange.members[0][0].root, ignore_errors=True)
+    finally:
+        exchange.close()

@@ -287,9 +287,9 @@ def test_kernel_operand_checks():
 def test_sources_carry_their_notes_and_no_fast_math():
     srcs = list(_lib.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {
-        "fingerprint.cu", "quantize.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "decode_attention.cu", "ssm_scan.cu",
-        "rglru_scan.cu"}
+        "chunk_digest.cu", "fingerprint.cu", "quantize.cu",
+        "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+        "ssm_scan.cu", "rglru_scan.cu"}
     for p in srcs:
         text = p.read_text()
         assert "Replaces" in text and "bound" in text.lower()
