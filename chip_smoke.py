@@ -2204,6 +2204,331 @@ def phase_embeds(arch, dev, card, launches) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase: a four-rank pod's sharded save and elastic restore on the one card
+# ---------------------------------------------------------------------------
+
+POD_CHUNK = 1 << 20
+POD_WORLDS = (("save", 4, (2, 2)), ("restore", 2, (1, 2)), ("restore", 4, (4, 1)))
+POD_TIMEOUT_S = 240            # each world's time limit, rendezvous included
+POD_BARRIER_S = 120.0          # the ranks' time limit for a collective
+
+
+def _pod_specs(cfg):
+    """The phase's state: phi3-mini's parameters (published widths, the cut
+    depth) in bf16 and their AdamW moments in float32, as meta specs."""
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.models import model
+    params = model.param_specs(cfg)
+    f32 = lambda: ser.unflatten_like(params, {
+        n: torch.empty(t.shape, dtype=torch.float32, device="meta")
+        for n, t in ser.flatten_state(params).items()})
+    return {"params": params, "opt": {"mu": f32(), "nu": f32()}}
+
+
+def _pod_leaf(i: int, name: str, spec, dev):
+    """Leaf ``i`` of the seeded state, whole, on the card: every rank and
+    every world makes the same values (one seed per leaf)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1000 + i)
+    x = torch.randn(spec.shape, generator=g, device=dev, dtype=torch.float32)
+    if "/nu/" in f"/{name}/":
+        x = x * x * 1e-6
+    elif "/mu/" in f"/{name}/":
+        x = x * 1e-3
+    return x.to(spec.dtype)
+
+
+def _pod_expected(full, name):
+    """What a restore must give for a whole leaf: the leaf, or for a moment
+    the dequantize of its int8 quantize with the tensor-global scale (the
+    plain versions; bit-identical to the host's ``finish_payload``)."""
+    import numpy as np
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.kernels.quantize.ref import (dequantize_int8_ref,
+                                                  quantize_with_inv_ref)
+    if not ser.is_moment_name(name):
+        return full
+    scale, inv = ser.int8_scale_inv(np.float32(full.abs().max().item()))
+    return dequantize_int8_ref(quantize_with_inv_ref(full, inv), scale,
+                               dtype=full.dtype)
+
+
+def _touched_chunks(rec: dict, region) -> int:
+    """The chunks of one saved piece (a v2 record) whose bytes meet the
+    global ``region``: the fewest that a reader of the region must decode
+    from that piece, reckoned from the record alone."""
+    import numpy as np
+    from repro_torch.checkpoint import manifest as mf
+    from repro_torch.checkpoint import serialize as ser
+    pidx = [tuple(int(x) for x in p) for p in rec["index"]]
+    inter = [(max(a, p0), min(b, p1)) for (a, b), (p0, p1) in zip(region, pidx)]
+    if any(lo >= hi for lo, hi in inter):
+        return 0
+    local = [(lo - p0, hi - p0) for (lo, hi), (p0, _p1) in zip(inter, pidx)]
+    shape = [p1 - p0 for p0, p1 in pidx]
+    item = ser.stored_dtype(rec["dtype"],
+                            ser.split_codec(rec.get("codec", "raw"))[0]).itemsize
+    strides = [int(np.prod(shape[i + 1:], dtype=np.int64)) for i in range(len(shape))]
+    # the region's C-order byte runs: one per index of the axes before the
+    # last partially covered axis k (the axes after k are whole)
+    partial = [i for i, ((a, b), n) in enumerate(zip(local, shape)) if (a, b) != (0, n)]
+    k = partial[-1] if partial else 0
+    lo = np.zeros(1, dtype=np.int64)
+    for i in range(k):
+        lo = (lo[:, None] + np.arange(*local[i], dtype=np.int64) * strides[i]).ravel()
+    lo = lo + local[k][0] * strides[k]
+    hi = lo + (local[k][1] - local[k][0]) * strides[k]
+    offs = np.asarray(mf.chunk_byte_offsets(rec), dtype=np.int64)
+    hit = np.zeros(len(offs), dtype=np.int64)       # +1 where a run's chunks
+    np.add.at(hit, np.searchsorted(offs, lo * item, "right") - 1, 1)  # start,
+    np.add.at(hit, np.searchsorted(offs, hi * item, "left"), -1)      # -1 past
+    return int((np.cumsum(hit)[:-1] > 0).sum())
+
+
+def pod_worker(args: dict) -> dict:
+    """One rank of a pod world on the card (``--pod-worker``): joins the
+    gloo group, then saves (the ``(2, 2)`` world: a periodic and an urgent
+    save of its shards) or restores through ``elastic_restore`` onto its
+    mesh, streaming, and checks its shards bit for bit. Returns its
+    numbers; any failed check raises."""
+    t_entry = time.time()
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import AsyncCheckpointer, CheckpointStore, TensorSpec
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic import MeshPlan, elastic_restore, plan_mesh_for
+    from repro_torch.distributed import multihost
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _lib
+
+    rank, world = args["rank"], args["world"]
+    # from the parent's spawn: the interpreter and this script, then the
+    # imports above (torch, the port)
+    stamps = {"spawn_s": t_entry - args["spawned_at"],
+              "import_s": time.time() - t_entry}
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=args["init"], rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=POD_BARRIER_S))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    waits: dict[str, float] = {}
+    sync = multihost.sync_global_devices
+
+    def timed_sync(name, group=None):  # the barrier's wait, per sync point
+        t0 = time.perf_counter()
+        sync(name, group)
+        waits[name] = waits.get(name, 0.0) + time.perf_counter() - t0
+    multihost.sync_global_devices = timed_sync
+    cfg = get_config("phi3_mini_3p8b").scaled(n_layers=LAYERS)
+    specs = ser.flatten_state(_pod_specs(cfg))
+    if args["kind"] == "save":
+        plan = MeshPlan(tuple(args["mesh"]), ("data", "model"))
+    else:                              # the survivors' plan
+        plan = plan_mesh_for(world, model_parallel=args["mesh"][1])
+        need(plan.shape == tuple(args["mesh"]), f"planned {plan.shape}")
+    mesh = plan.build()
+    rules = shd.elastic_rules(mesh, fsdp=True)
+    sharding = ser.flatten_state(shd.tree_shardings(_pod_specs(cfg), rules))
+    store = CheckpointStore(args["root"], chunk_size=POD_CHUNK, compress=False,
+                            quantize_moments=True, retention=3)
+    _lib.reset_launches()
+    res: dict = {"rank": rank, "world": world, "mesh": args["mesh"],
+                 "start_s": time.perf_counter() - t_start, **stamps}
+    timed_sync("spoton:pod_ready")
+    if args["kind"] == "save":
+        state, local_bytes = {}, 0
+        for i, (n, spec) in enumerate(specs.items()):
+            state[n] = shd.distribute(_pod_leaf(i, n, spec, dev), sharding[n])
+            local_bytes += state[n].to_local().numel() * spec.element_size()
+        state = ser.unflatten_like(_pod_specs(cfg), state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        periodic = store.save(10, state)
+        res["periodic_save_s"] = time.perf_counter() - t0
+        ac = AsyncCheckpointer(store)
+        t0 = time.perf_counter()
+        urgent = ac.save_urgent(11, state, timeout_s=POD_BARRIER_S)
+        res["urgent_save_s"] = time.perf_counter() - t0
+        ac.close()
+        res.update(local_bytes=local_bytes, periodic_nbytes=periodic.nbytes,
+                   urgent_nbytes=urgent.nbytes, urgent_legs=urgent.legs)
+        res["launches"] = dict(_lib.LAUNCHES)
+        # the stored int8 payloads against a host quantize of each whole
+        # moment (the ranks split the leaves)
+        man, reader = store.latest_valid()
+        need(man.step == 11 and man.kind == "termination",
+             f"the latest save is step {man.step} ({man.kind})")
+        checked = 0
+        for i, (n, spec) in enumerate(specs.items()):
+            if not ser.is_moment_name(n) or i % world != rank:
+                continue
+            whole = tuple((0, s) for s in spec.shape)
+            got, _dt, quant, scale = reader.read_region_payload(n, whole)
+            q, want_scale = ser.quantize(ser.to_host(_pod_leaf(i, n, spec, dev)),
+                                         "int8", "float32")
+            need(quant == "int8" and np.float32(scale) == np.float32(want_scale)
+                 and np.array_equal(got, q),
+                 f"{n}: the stored int8 payload differs from a host quantize "
+                 "of the whole tensor")
+            checked += 1
+        res["int8_leaves_checked"] = checked
+        del state
+    else:
+        template = lambda m: ser.unflatten_like(_pod_specs(cfg), {
+            n: TensorSpec(tuple(spec.shape), spec.dtype, dev, m,
+                          sharding[n].placements)
+            for n, spec in specs.items()})
+        t0 = time.perf_counter()
+        got, man = elastic_restore(store, template, mesh, streaming=True)
+        res["restore_s"] = time.perf_counter() - t0
+        res["launches"] = dict(_lib.LAUNCHES)
+        need(man.step == 11 and man.kind == "termination",
+             f"restored step {man.step} ({man.kind})")
+        st = dict(store.last_region_stats)
+        res["region_stats"] = st
+        local_bytes = 0
+        named = ser.flatten_state(got)
+        records: dict[str, list] = {}
+        for rec in man.tensors:
+            records.setdefault(rec["name"].rsplit("#", 1)[0], []).append(rec)
+        res["chunks_total"] = sum(len(r["chunks"]) for r in man.tensors)
+        res["chunks_needed"] = 0
+        for i, (n, spec) in enumerate(specs.items()):
+            t = named[n]
+            need(isinstance(t, torch.distributed.tensor.DTensor)
+                 and tuple(t.shape) == tuple(spec.shape)
+                 and t.to_local().device == dev, f"{n}: not a DTensor on the card")
+            (region,) = shd.addressable_shard_spans(mesh, t.placements, spec.shape)
+            res["chunks_needed"] += sum(_touched_chunks(r, region)
+                                        for r in records[n])
+            want = _pod_expected(_pod_leaf(i, n, spec, dev), n)
+            want = want[tuple(slice(a, b) for a, b in region)]
+            local = t.to_local()
+            need(local.shape == want.shape and torch.equal(
+                local.view(torch.int16) if local.dtype == torch.bfloat16 else
+                local.view(torch.int32), want.contiguous().view(
+                    torch.int16 if want.dtype == torch.bfloat16 else torch.int32)),
+                 f"{n}: restored shard {region} differs from the seeded state")
+            local_bytes += local.numel() * local.element_size()
+        res["local_bytes"] = local_bytes
+        res["chunk_bytes_decoded"] = st["chunks_decoded"] * POD_CHUNK
+        del got, named
+    res["barrier_wait_s"] = waits
+    res["wall_s"] = time.perf_counter() - t_start
+    dist.destroy_process_group()
+    res["done_at"] = time.time()
+    return res
+
+
+def _run_world(kind, world, mesh, root, workdir, tag) -> list[dict]:
+    """Start ``world`` ranks of ``pod_worker`` on the card, each a process
+    of this script, and collect their results. A rank that fails, or a
+    world past its time limit, fails the phase; every rank is stopped."""
+    init = f"file://{workdir / f'rdv_{tag}'}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = []
+    for r in range(world):
+        spec = json.dumps({"rank": r, "world": world, "mesh": list(mesh),
+                           "kind": kind, "root": str(root), "init": init,
+                           "spawned_at": time.time()})
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--pod-worker", spec],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+    deadline = time.monotonic() + POD_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"{tag}: a rank passed the {POD_TIMEOUT_S} s limit")
+            outs.append((p.returncode, out, err, time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (rc, out, err, reaped) in enumerate(outs):
+        if rc != 0:
+            print(err[-4000:], file=sys.stderr)
+            raise PhaseError(f"{tag}: rank {r} exited {rc}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+        # from the rank's last result to its exit being seen here
+        results[-1]["exit_s"] = reaped - results[-1].pop("done_at")
+    return results
+
+
+def phase_pod_restore(cfg, dev, workdir, launches) -> dict:
+    """Four ranks on a ``(2, 2)`` ``("data", "model")`` mesh hold phi3-mini's
+    published-width state (the cut depth) under ``tree_shardings`` of
+    ``elastic_rules(fsdp=True)`` and take a periodic and an urgent save
+    (absmax and quantize on the local shards, with the all-reduced scale).
+    Two are evicted: a world of 2 ranks restores onto ``(1, 2)``, then a
+    world of 4 onto ``(4, 1)``, each through ``elastic_restore``, streaming
+    (only its regions decoded, int8 regions widened on the card). Every
+    rank's shards are held to the seeded state bit for bit, and to the
+    dequantize of a whole-tensor quantize for the moments."""
+    from repro_torch.checkpoint import serialize as ser
+    work = workdir / "pod"
+    work.mkdir(parents=True, exist_ok=True)
+    specs = ser.flatten_state(_pod_specs(cfg))
+    res: dict = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                            "d_model": cfg.d_model, "chunk": POD_CHUNK,
+                            "param_gb": sum(s.numel() * s.element_size()
+                                            for n, s in specs.items()
+                                            if n.startswith("params/")) / 1e9,
+                            "moment_gb": sum(s.numel() * s.element_size()
+                                             for n, s in specs.items()
+                                             if not n.startswith("params/")) / 1e9},
+                 "worlds": []}
+    total = {}
+    for i, (kind, world, mesh) in enumerate(POD_WORLDS):
+        t0 = time.perf_counter()
+        ranks = _run_world(kind, world, mesh, work / "store", work, f"w{i}")
+        res["worlds"].append({"kind": kind, "world": world, "mesh": list(mesh),
+                              "wall_s": time.perf_counter() - t0, "ranks": ranks})
+        for r in ranks:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    launches["pod_restore"] = total
+    for k in ("absmax", "quantize", "dequantize"):
+        need(total.get(k, 0) > 0, f"the pod worlds launched no {k} kernel")
+    save = res["worlds"][0]["ranks"]
+    need(sum(r["int8_leaves_checked"] for r in save)
+         == sum(ser.is_moment_name(n) for n in specs),
+         "not every moment's int8 payload was checked")
+    stored = sum(s.numel() * (1 if ser.is_moment_name(n) else s.element_size())
+                 for n, s in specs.items())
+    for w in res["worlds"][1:]:
+        for r in w["ranks"]:
+            st = r["region_stats"]
+            chunks = st["chunks_decoded"] + st["chunks_skipped"]
+            share = chunks / w["world"]
+            r["decoded_of_share"] = st["chunks_decoded"] / share
+            r["chunk_bytes_decoded_of_state"] = r["chunk_bytes_decoded"] / stored
+            need(st["chunks_skipped"] > 0,
+                 f"{w['mesh']} rank {r['rank']} skipped no chunk: {st}")
+            # O(shard): exactly the chunks the rank's regions touch, each
+            # once, and every other chunk of the state skipped
+            need(st["chunks_decoded"] == r["chunks_needed"]
+                 and chunks == r["chunks_total"],
+                 f"{w['mesh']} rank {r['rank']} decoded {st['chunks_decoded']} "
+                 f"and skipped {st['chunks_skipped']} chunks; its regions "
+                 f"touch {r['chunks_needed']} of {r['chunks_total']}")
+    res["launches"] = total
+    res["stored_bytes"] = stored
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def ptxas_summary(report: dict) -> dict:
     """``ptxas -v``'s registers and spill bytes per kernel instance, under
     short names: kernel<dtype,template ints>."""
@@ -2345,6 +2670,8 @@ def main() -> int:
                 cfg, dev, workdir, STEPS, launches),
             "fleet_peer": lambda: phase_fleet_peer(cfg, dev, workdir,
                                                    launches),
+            "pod_restore": lambda: phase_pod_restore(cfg, dev, workdir,
+                                                     launches),
             "train_gemma3": lambda: phase_train_gemma3(dev, card, launches),
             "spot_loop_gemma3": lambda: phase_spot_loop(
                 get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
@@ -2437,4 +2764,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-worker"]:
+        print(json.dumps(pod_worker(json.loads(sys.argv[2])), default=float))
+        sys.exit(0)
     sys.exit(main())

@@ -1,7 +1,7 @@
-"""Checkpoint substrate of the PyTorch port: serialization, single-device
-save/restore, atomic store with the incremental (delta) chunk pool, async
-writer, device-resident delta tracker, the priority codec scheduler and the
-peer-to-peer chunk exchange of a fleet."""
+"""Checkpoint substrate of the PyTorch port: serialization, sharded
+(per-rank) save and elastic restore, atomic store with the incremental
+(delta) chunk pool, async writer, device-resident delta tracker, the
+priority codec scheduler and the peer-to-peer chunk exchange of a fleet."""
 
 from .async_ckpt import AsyncCheckpointer
 from .chunkstore import ChunkPool, ChunkRef, DeltaIndex

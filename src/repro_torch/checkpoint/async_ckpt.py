@@ -31,6 +31,7 @@ from typing import Any, Callable
 from . import serialize as ser
 from . import sharded
 from .store import CheckpointInfo, CheckpointStore
+from ..distributed import multihost
 
 
 @dataclass
@@ -117,7 +118,10 @@ class AsyncCheckpointer:
         """Termination checkpoint: snapshot, drop queued (stale) jobs, write now.
 
         Blocks until durably committed (or `timeout_s`). Stale queued periodic
-        snapshots are discarded — the termination snapshot supersedes them.
+        snapshots are discarded in one process — the termination snapshot
+        supersedes them. In a group of several ranks they are kept, and the
+        urgent save runs its collectives on the store's urgent group, apart
+        from a periodic save still in flight (``CheckpointStore.save_group``).
 
         On a quantize-moments store the optimizer moments are absmax-int8
         quantized *on device* before the host copy, so the extract leg of the
@@ -144,10 +148,14 @@ class AsyncCheckpointer:
             state, step=step, mesh_info=mesh_info,
             on_device_quantize=(ser.is_moment_name
                                 if self.store.quantize_moments else None),
-            digest_chunk=self.store.urgent_digest_chunk)
-        # discard queued-but-unstarted periodic jobs; they are older than `snap`
+            digest_chunk=self.store.urgent_digest_chunk,
+            group=self.store.save_group(kind))
+        # discard queued-but-unstarted periodic jobs; they are older than
+        # `snap`. Not in a group of several ranks: which jobs a rank's
+        # writer has started is thread timing, and a save one rank drops
+        # while another runs it would fail at its first barrier
         try:
-            while True:
+            while multihost.process_count() == 1:
                 stale = self._queue.get_nowait()
                 if stale is not None:
                     stale.error = RuntimeError("superseded by termination checkpoint")

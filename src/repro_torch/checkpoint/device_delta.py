@@ -38,6 +38,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..kernels.fingerprint import (fingerprint_blocks, fingerprint_diff,
                                    n_blocks_of, supported_dtype)
@@ -50,6 +51,12 @@ from .ioutil import array_bytes_view
 # leaves below this size take the dense path: the fingerprint launch +
 # bookkeeping costs more than just copying them
 MIN_FINGERPRINT_BYTES = 1 << 16
+
+
+def _local(leaf):
+    """The tensor a tracked leaf's fingerprints cover: a replicated
+    ``DTensor``'s local tensor."""
+    return leaf.to_local() if isinstance(leaf, DTensor) else leaf
 
 
 @dataclass
@@ -268,9 +275,15 @@ class DeviceDeltaTracker:
         None (dense). Tracked leaves are tensors with a fingerprintable dtype
         and a quantization-free codec — the int8 absmax scale is
         tensor-global, so quantized payloads re-encode wholesale whenever
-        anything changed and block deltas buy nothing."""
+        anything changed and block deltas buy nothing. A ``DTensor`` is
+        tracked only when fully replicated, on its local tensor; a sharded
+        one goes dense."""
         if self.chunk_size % 4:
             return None
+        if isinstance(leaf, DTensor):
+            if not all(isinstance(p, Replicate) for p in leaf.placements):
+                return None
+            leaf = leaf.to_local()
         if not isinstance(leaf, torch.Tensor) or leaf.ndim < 1:
             return None
         if not supported_dtype(leaf.dtype) or _nbytes(leaf) < self.min_bytes:
@@ -295,11 +308,12 @@ class DeviceDeltaTracker:
         # async writer's commit bookkeeping, and begin()'s `pend.ent is ent`
         # guard discards a diff whose entry a commit swapped in between
         diff = None
-        if ent is not None and self._usable(ent, leaf, codec):
-            fp, d = fingerprint_diff(leaf, ent.fp, block_bytes=self.chunk_size)
+        local = _local(leaf)
+        if ent is not None and self._usable(ent, local, codec):
+            fp, d = fingerprint_diff(local, ent.fp, block_bytes=self.chunk_size)
             diff = HostCopy(d)
         else:
-            fp, ent = fingerprint_blocks(leaf, block_bytes=self.chunk_size), None
+            fp, ent = fingerprint_blocks(local, block_bytes=self.chunk_size), None
         with self._lock:
             self._pending[name] = _Pending(leaf=leaf, fp=fp, diff=diff, ent=ent)
         return True
@@ -338,10 +352,11 @@ class DeviceDeltaTracker:
                 plan.append((name, leaf, codec, ent, pend))
             self._pending.clear()                  # saves never interleave
         fallbacks = 0
-        for name, leaf, codec, ent, pend in plan:
+        for name, held, codec, ent, pend in plan:
+            leaf = _local(held)
             usable = ent is not None and self._usable(ent, leaf, codec)
             diff = None
-            if pend is not None and pend.leaf is leaf:
+            if pend is not None and pend.leaf is held:
                 fp = pend.fp
                 if pend.ent is ent:
                     diff = pend.diff

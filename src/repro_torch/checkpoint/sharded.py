@@ -1,15 +1,18 @@
-"""Checkpoint extraction, writing and restore for single-device state.
+"""Sharded (per-rank) checkpoint extraction, writing and elastic restore.
 
 Save path, two phases (so the trainer only blocks on the cheap one):
 
-  1. ``extract_snapshot(state)`` — device→host copy of every tensor leaf,
-     the transparent-checkpoint "freeze" moment. The copies are pipelined:
+  1. ``extract_snapshot(state)`` — device→host copy of every tensor leaf
+     this rank writes (a ``DTensor``'s local shard with its global index,
+     where the rank is the shard's first replica), the transparent-checkpoint
+     "freeze" moment. The copies are pipelined:
      ``non_blocking`` copies into pinned host memory are issued across *all*
      leaves first (``prestage`` may already have issued them), then one
      gather pass waits on their events. With ``on_device_quantize``, selected
      leaves (optimizer moments before an urgent save) are absmax-int8
      quantized *on the device* first (the CUDA quantize kernels), so they
-     cross the link at 1/4 width; the stored bytes equal a host quantize.
+     cross the link at 1/4 width; the stored bytes equal a host quantize
+     of the whole tensor: a sharded leaf's absmax is reduced over the ranks.
   2. ``write_snapshot(dir, snapshot)`` / ``write_snapshot_delta`` — encode +
      write, in the async writer thread.
 
@@ -21,15 +24,22 @@ read-only mmap view handed to torch) and sent ``non_blocking``; int8
 payloads cross at 1/4 width and widen on the device through the dequantize
 kernel.
 
-The manifest stores global shapes and per-piece global indices, so a
-checkpoint the reference package wrote on a multi-device mesh restores here
-through ``read_slice`` assembly. This port runs one device; its saves are
-one whole-tensor piece per leaf.
+Restore is **mesh-independent** ("elastic"): the manifest stores global
+shapes and per-piece global indices, and a template leaf that is a
+``DTensor`` (or a ``TensorSpec`` with a mesh and placements) restores only
+this rank's region of it, whatever mesh and rank count wrote the
+checkpoint: range-addressed reads decode just the chunks the region
+touches, int8 regions widen on the device, and every rank waits at the
+restore barrier (``distributed.multihost``) before it returns. In a
+process group of several ranks each rank writes its own pieces and rank 0
+commits the one manifest (``store.CheckpointStore``).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import itertools
 import os
 import threading
 import time
@@ -40,6 +50,8 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from . import chunkstore
 from . import manifest as mf
@@ -47,6 +59,8 @@ from . import serialize as ser
 from .device_delta import DeltaBlocks, DeviceDeltaTracker, write_delta_blocks_piece
 from .hostcopy import HostCopy
 from .ioutil import fsync_dir
+from ..distributed import multihost
+from ..distributed import sharding as shd
 
 Index = tuple[tuple[int, int], ...]
 
@@ -70,6 +84,7 @@ class LeafPieces:
     # (sha1 hex, crc32) of each chunk of the single piece's raw payload,
     # computed on the device (urgent saves; ``kernels.chunk_digest``)
     digests: list[tuple[str, int]] | None = None
+    piece_base: int = 0            # number of the first piece (``name#k``)
 
 
 @dataclass
@@ -140,15 +155,82 @@ def prestage(state, tracker: DeviceDeltaTracker | None = None, *,
     """
     state, copies = _unwrap(state)
     copies = dict(copies)
+    multi = multihost.process_count() > 1
     for name, leaf in ser.flatten_state(state).items():
-        if (not isinstance(leaf, torch.Tensor) or leaf.device.type != "cuda"
-                or (skip is not None and skip(name))):
+        if (not isinstance(leaf, torch.Tensor)
+                or _local(leaf).device.type != "cuda"
+                or (skip is not None and skip(name)) or not _writes(leaf, multi)):
             continue
         if tracker is not None and tracker.prestage_leaf(name, leaf):
             continue
         if name not in copies:
-            copies[name] = HostCopy(leaf, staged=True)
+            copies[name] = HostCopy(_local(leaf), staged=True)
     return Prestaged(state, copies)
+
+
+def _layout(leaf) -> shd.Sharding | None:
+    """Mesh and placements of a ``DTensor`` leaf, else None."""
+    if isinstance(leaf, DTensor):
+        return shd.Sharding(leaf.device_mesh, tuple(leaf.placements))
+    return None
+
+
+def _local(leaf):
+    """The tensor this rank holds of ``leaf``: a ``DTensor``'s local shard."""
+    return leaf.to_local() if isinstance(leaf, DTensor) else leaf
+
+
+def _writes(leaf, multi: bool) -> bool:
+    """True when this rank writes ``leaf``: a ``DTensor``'s shard on the
+    shard's first replica (``sharding.is_writer``); any other leaf, which
+    every rank holds whole, on rank 0 of a process group of several."""
+    lay = _layout(leaf)
+    if lay is not None:
+        return shd.is_writer(lay.mesh, lay.placements)
+    return not multi or multihost.process_index() == 0
+
+
+def _same_copy_source(cp: HostCopy, leaf) -> bool:
+    """True when the prestaged copy ``cp`` reads ``leaf`` (for a ``DTensor``,
+    its local shard: each ``to_local`` is a new alias of one storage)."""
+    if cp.src is leaf:
+        return True
+    if not isinstance(leaf, DTensor):
+        return False
+    t = leaf.to_local()
+    return (cp.src.data_ptr() == t.data_ptr() and cp.src.shape == t.shape
+            and cp.src.stride() == t.stride() and cp.src.dtype == t.dtype)
+
+
+def _quantize_on_device(everything: dict, named: dict,
+                        predicate: Callable[[str], bool], multi: bool,
+                        group=None) -> dict[str, tuple[HostCopy, float]]:
+    """The urgent save's on-device int8 quantize of the float leaves
+    ``predicate`` selects, for the leaves this rank writes (``named``).
+    Each leaf takes its tensor-global scale: absmax runs on this rank's
+    local tensor (a ``DTensor``'s shard), the maxima are MAX-reduced over
+    the ranks of ``group`` on a host tensor (every rank takes part, in leaf
+    order; over one rank, or over whole copies, the reduce changes
+    nothing), and the quantize kernel runs on the local tensor with
+    ``serialize.int8_scale_inv`` of the result, so the stored bytes equal a
+    host quantize of the whole tensor."""
+    from ..kernels.quantize import absmax, quantize_with_inv
+    sel = [(name, _local(leaf).detach().contiguous())
+           for name, leaf in everything.items()
+           if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1
+           and leaf.dtype.is_floating_point and predicate(name)]
+    if not sel:
+        return {}
+    maxima = torch.cat([absmax(t).cpu() for _n, t in sel])
+    if multi:
+        dist.all_reduce(maxima, op=dist.ReduceOp.MAX, group=group)
+    out: dict[str, tuple[HostCopy, float]] = {}
+    for (name, t), am in zip(sel, maxima.numpy()):
+        if name in named:
+            scale, inv = ser.int8_scale_inv(am)
+            out[name] = (HostCopy(quantize_with_inv(t, inv), staged=True),
+                         float(scale))
+    return out
 
 
 def _is_py_scalar(leaf) -> bool:
@@ -162,7 +244,10 @@ def urgent_staging_sizes(state, *, quantize_moments: bool) -> list[int]:
     state, _copies = _unwrap(state)
     sizes = []
     for name, leaf in ser.flatten_state(state).items():
-        if not isinstance(leaf, torch.Tensor) or leaf.device.type != "cuda":
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        leaf = _local(leaf)
+        if leaf.device.type != "cuda":
             continue
         int8 = (quantize_moments and leaf.ndim >= 1
                 and leaf.dtype.is_floating_point and ser.is_moment_name(name))
@@ -203,7 +288,7 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
                      on_device_quantize: Callable[[str], bool] | None = None,
                      tracker: DeviceDeltaTracker | None = None,
                      digest_chunk: Callable[[str, torch.Tensor], int | None]
-                     | None = None,
+                     | None = None, group=None,
                      ) -> Snapshot:
     """Freeze ``state`` to host memory.
 
@@ -224,24 +309,28 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
     chunk's SHA-1 and CRC-32 on the device (``kernels.chunk_digest``, one
     launch beside the copies), so the write that follows does not digest it
     on the host.
+
+    A ``DTensor`` leaf gives one piece: this rank's local shard at its
+    global index, written only by the shard's first replica (coordinate 0
+    on every mesh dim that does not shard it); in a process group of
+    several ranks any other leaf is written by rank 0 alone. Every rank
+    calls this for the same state: the quantize's reduce is collective, on
+    ``group`` (the store's ``save_group`` of the save that follows).
     """
     t_stall0 = time.perf_counter()
     state, copies = _unwrap(state)
-    named = ser.flatten_state(state)
-    leaf_order = list(named)
+    everything = ser.flatten_state(state)
+    leaf_order = list(everything)
+    multi = multihost.process_count() > 1
+    named = {n: leaf for n, leaf in everything.items() if _writes(leaf, multi)}
     tracked: dict[str, Any] = {}
     commit_cb = None
     if tracker is not None and on_device_quantize is None:
         tracked, commit_cb = tracker.begin(named)
     prequant: dict[str, tuple[HostCopy, float]] = {}   # name -> (q copy, scale)
     if on_device_quantize is not None:
-        from ..kernels.quantize import quantize_int8
-        for name, leaf in named.items():
-            if (isinstance(leaf, torch.Tensor) and leaf.ndim >= 1
-                    and leaf.dtype.is_floating_point
-                    and on_device_quantize(name)):
-                q, scale = quantize_int8(leaf.detach())
-                prequant[name] = (HostCopy(q, staged=True), scale)
+        prequant = _quantize_on_device(everything, named, on_device_quantize,
+                                       multi, group)
     staged: dict[str, HostCopy] = {}
     for name, leaf in named.items():                # phase 1: async staging
         if name in tracked:
@@ -250,8 +339,8 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
         if name in prequant or not isinstance(leaf, torch.Tensor):
             continue
         cp = copies.get(name)
-        staged[name] = (cp if cp is not None and cp.src is leaf
-                        else HostCopy(leaf, staged=True))
+        staged[name] = (cp if cp is not None and _same_copy_source(cp, leaf)
+                        else HostCopy(_local(leaf), staged=True))
     legs = chunkstore.SaveLegs()
     legs.add("pin_alloc_busy_s", sum(cp.alloc_s for cp in staged.values())
              + sum(cp.alloc_s for cp, _scale in prequant.values()))
@@ -295,6 +384,13 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
                             [(full_idx(arr.shape), arr)],
                             is_scalar_py=_is_py_scalar(leaf),
                             py_type=type(leaf).__name__)
+        lay = _layout(leaf)
+        if lay is not None:             # this rank's shard, at its global index
+            (region,) = shd.addressable_shard_spans(lay.mesh, lay.placements,
+                                                    tuple(leaf.shape))
+            lp.global_shape = tuple(int(s) for s in leaf.shape)
+            lp.piece_base = shd.piece_number(lay.mesh, lay.placements)
+            lp.pieces = [(region, arr)] if all(a < b for a, b in region) else []
         nbytes += arr.nbytes
         d2h_bytes += arr.nbytes
         leaves[name] = lp
@@ -340,7 +436,7 @@ def write_snapshot(
     """Write this process's shard container. Returns tensor records (+file)."""
     pending = []
     for name, lp in snapshot.leaves.items():
-        for pi, (index, arr) in enumerate(lp.pieces):
+        for pi, (index, arr) in enumerate(lp.pieces, lp.piece_base):
             codec = _piece_codec(name, lp, arr, compress=compress,
                                  quantize_moments=quantize_moments)
             pending.append(ser.encode_tensor(
@@ -417,7 +513,7 @@ def write_snapshot_delta(
     # an urgent save holds periodic saves' chunk writes while it writes
     with chunkstore.urgent_window() if urgent else contextlib.nullcontext():
         for name, lp in snapshot.leaves.items():
-            for pi, (idx, arr) in enumerate(lp.pieces):
+            for pi, (idx, arr) in enumerate(lp.pieces, lp.piece_base):
                 if isinstance(arr, DeltaBlocks):
                     fut = ex.submit(write_delta_blocks_piece, pool, (name, pi),
                                     arr, index, pin, dirty_dirs)
@@ -529,6 +625,12 @@ class CheckpointReader:
                          chunkstore.CHUNKS_DIRNAME))
         self._readers: dict[str, ser.ShardFileReader] = {}
         self._readers_lock = threading.Lock()
+        # shard-aware restore accounting: chunks decoded vs proven skippable
+        # by range-addressed reads, plus regions that fell back to piece
+        # assembly — the tests and the chip run read these
+        self.region_stats = {"region_reads": 0, "chunks_decoded": 0,
+                             "chunks_skipped": 0, "fallback_reads": 0}
+        self._stats_lock = threading.Lock()
         self.by_name: dict[str, list[dict]] = {}
         for rec in tensor_records:
             base = rec["name"].rsplit("#", 1)[0]
@@ -638,6 +740,202 @@ class CheckpointReader:
             return None
         return rec
 
+    def _count(self, **deltas) -> None:
+        with self._stats_lock:
+            for k, v in deltas.items():
+                self.region_stats[k] += v
+
+    def _read_rows(self, rec: dict, a: int, b: int, *, parallel: bool
+                   ) -> tuple[np.ndarray, int, int] | None:
+        """Stored payload (pre-dequantize) of rows ``[a, b)`` of one v2
+        piece, decoding only the chunks those rows' bytes touch: (rows,
+        chunks decoded, chunks skipped), or None for a degenerate map.
+        Chunks come from the manifest's shard-span map when the record has
+        one, else from ``raw_len`` prefix sums — both pick the same ones."""
+        shape = tuple(int(s) for s in rec["shape"])
+        quant, _comp = ser.split_codec(rec.get("codec", "raw"))
+        pdtype = ser.stored_dtype(rec["dtype"], quant)
+        row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * pdtype.itemsize
+        byte_lo, byte_hi = a * row_bytes, b * row_bytes
+        refs = rec["chunks"]
+        offs = mf.chunk_byte_offsets(rec)
+        spans = mf.record_shard_spans(rec)
+        if spans is not None:
+            # chunks whose row band intersects [a, b)
+            c0 = bisect.bisect_right([hi for _, hi in spans], a)
+            c1 = bisect.bisect_left([lo for lo, _ in spans], b)
+        else:
+            c0 = bisect.bisect_right(offs, byte_lo) - 1
+            c1 = bisect.bisect_left(offs, byte_hi)
+        c0, c1 = max(c0, 0), min(c1, len(refs))
+        if c1 <= c0:
+            return None
+        out = np.empty((b - a, *shape[1:]), dtype=pdtype)
+        decoded, skipped = chunkstore.read_payload_range_into(
+            self.chunk_pool, refs[c0:c1], out, byte_lo=byte_lo,
+            base_off=offs[c0],
+            executor=chunkstore.restore_executor() if parallel else None)
+        return out, decoded, skipped + (len(refs) - (c1 - c0))
+
+    def read_region_streaming(self, name: str, region: Index,
+                              *, parallel: bool = True) -> np.ndarray | None:
+        """Range-addressed decode of one contiguous global region of ``name``
+        — only the chunks whose bytes the region touches are opened, so a
+        sharded restore reads O(shard), not O(tensor).
+
+        The stored layout must allow it: a v2 single-full-piece record whose
+        flat C-order payload makes the region one contiguous byte range
+        (only axis 0 sub-sliced; trailing axes full). Returns the region in
+        the logical (storage) dtype, or None when the layout cannot be
+        range-addressed (v1 container records, multi-piece saves,
+        trailing-axis slices); callers fall back to ``read_slice``.
+        Bit-identical to slicing the full-leaf read: int8 dequantization
+        multiplies elementwise with the tensor-global scale."""
+        rec = self.single_piece_record(name)
+        if rec is None or "chunks" not in rec:
+            return None
+        shape = tuple(int(s) for s in rec["shape"])
+        region = tuple((int(a), int(b)) for a, b in region)
+        if len(region) != len(shape):
+            return None
+        if any(not 0 <= a <= b <= s for (a, b), s in zip(region, shape)):
+            return None
+        if region == tuple((0, s) for s in shape):
+            return self._read_piece_into(rec, None, parallel=parallel)
+        if any((a, b) != (0, s) for (a, b), s in zip(region[1:], shape[1:])):
+            return None          # trailing-axis sub-slice: not flat-contiguous
+        got = self._read_rows(rec, *region[0], parallel=parallel)
+        if got is None:
+            return None          # degenerate map/region: let read_slice decide
+        out, decoded, skipped = got
+        self._count(region_reads=1, chunks_decoded=decoded,
+                    chunks_skipped=skipped)
+        quant, _comp = ser.split_codec(rec.get("codec", "raw"))
+        return ser.finish_payload(out, dtype_name=rec["dtype"], quant=quant,
+                                  scale=rec.get("scale"))
+
+    def read_region_for_restore(self, name: str, region: Index) -> np.ndarray:
+        """One shard-region decode job on the RESTORE lane: range-addressed
+        when the stored layout allows, ``read_slice`` fallback otherwise.
+        Runs *on* the restore executor, so chunk work inside stays serial."""
+        arr = self.read_region_streaming(name, region, parallel=False)
+        if arr is not None:
+            return arr
+        self._count(fallback_reads=1)
+        return self.read_slice(name, region, parallel=False)
+
+    def _piece_region(self, rec: dict, local: Index) -> tuple[np.ndarray, int, int]:
+        """Stored payload of the piece-local ``local`` region of one v2
+        piece: (array, chunks decoded, chunks skipped). The region is read
+        as its C-order byte runs, each range-addressed, where every run
+        spans at least a chunk; otherwise the whole piece is decoded and
+        sliced."""
+        shape = tuple(int(s) for s in rec["shape"])
+        refs = rec["chunks"]
+        partial = [i for i, ((a, b), s) in enumerate(zip(local, shape))
+                   if (a, b) != (0, s)]
+        quant, _comp = ser.split_codec(rec.get("codec", "raw"))
+        pdtype = ser.stored_dtype(rec["dtype"], quant)
+        if partial:
+            k = partial[-1]             # axes after k are whole: one run each
+            inner = int(np.prod(shape[k + 1:], dtype=np.int64))
+            run = (local[k][1] - local[k][0]) * inner
+            if run * pdtype.itemsize >= max(int(r["r"]) for r in refs):
+                return self._read_runs(rec, local, k, inner, run, pdtype)
+        dst = ser.alloc_payload(rec["dtype"], shape, quant)
+        chunkstore.read_payload_into(self.chunk_pool, refs, dst, executor=None)
+        return dst[tuple(slice(a, b) for a, b in local)], len(refs), 0
+
+    def _read_runs(self, rec, local, k, inner, run, pdtype):
+        shape = tuple(int(s) for s in rec["shape"])
+        refs = rec["chunks"]
+        offs = mf.chunk_byte_offsets(rec)
+        strides = [int(np.prod(shape[i + 1:], dtype=np.int64))
+                   for i in range(len(shape))]
+        out = np.empty(tuple(b - a for a, b in local), dtype=pdtype)
+        flat = out.reshape(-1)
+        decoded, touched = 0, set()
+        outer = itertools.product(*(range(a, b) for a, b in local[:k]))
+        for j, idx in enumerate(outer):
+            lo = (sum(i * st for i, st in zip(idx, strides))
+                  + local[k][0] * inner) * pdtype.itemsize
+            hi = lo + run * pdtype.itemsize
+            c0 = bisect.bisect_right(offs, lo) - 1
+            c1 = bisect.bisect_left(offs, hi)
+            d, _s = chunkstore.read_payload_range_into(
+                self.chunk_pool, refs[c0:c1], flat[j * run:(j + 1) * run],
+                byte_lo=lo, base_off=offs[c0], executor=None)
+            decoded += d
+            touched.update(range(c0, c1))
+        return out, decoded, len(refs) - len(touched)
+
+    def read_region_payload(self, name: str, region: Index
+                            ) -> tuple[np.ndarray, str, str, float | None]:
+        """This rank's region of ``name`` for the sharded restore, in its
+        stored form: (payload, logical dtype name, quant, scale) — an int8
+        region stays int8 for the device to widen. Runs on the restore
+        executor, so chunk work inside stays serial.
+
+        A single-piece record whose region is a row band (the whole leaf
+        too) is read range-addressed (``region_reads``). Otherwise the region is
+        assembled from the pieces it intersects (``fallback_reads``): each
+        piece decodes only the chunks the region's byte runs in it touch
+        where the runs span a chunk, and pieces it misses are skipped whole.
+        Pieces of one int8 scale assemble still quantized; v1 container
+        records, and int8 pieces of differing scales, assemble logical
+        through ``read_slice``."""
+        region = tuple((int(a), int(b)) for a, b in region)
+        gshape = self.global_shape(name)
+        rec = self.single_piece_record(name)
+        if rec is not None and "chunks" in rec:
+            quant, _comp = ser.split_codec(rec.get("codec", "raw"))
+            out = None
+            if region == tuple((0, int(s)) for s in gshape):
+                out = ser.alloc_payload(rec["dtype"], rec["shape"], quant)
+                chunkstore.read_payload_into(self.chunk_pool, rec["chunks"],
+                                             out, executor=None)
+                self._count(region_reads=1, chunks_decoded=len(rec["chunks"]))
+            elif all((a, b) == (0, int(s))
+                     for (a, b), s in zip(region[1:], gshape[1:])):
+                got = self._read_rows(rec, *region[0], parallel=False)
+                if got is not None:
+                    out, decoded, skipped = got
+                    self._count(region_reads=1, chunks_decoded=decoded,
+                                chunks_skipped=skipped)
+            if out is not None:
+                return out, rec["dtype"], quant, rec.get("scale")
+        self._count(fallback_reads=1)
+        recs = self.by_name[name]
+        codecs = {(ser.split_codec(r.get("codec", "raw"))[0], r.get("scale"))
+                  for r in recs}
+        if any("chunks" not in r for r in recs) or len(codecs) != 1:
+            return (self.read_slice(name, region, parallel=False),
+                    self.dtype_name(name), "", None)
+        ((quant, scale),) = codecs
+        dtype_name = self.dtype_name(name)
+        out = np.empty(tuple(b - a for a, b in region),
+                       dtype=ser.stored_dtype(dtype_name, quant))
+        filled = decoded = skipped = 0
+        for r in recs:
+            pidx = tuple(tuple(int(x) for x in p) for p in r["index"])
+            inter = tuple((max(a0, b0), min(a1, b1))
+                          for (a0, a1), (b0, b1) in zip(region, pidx))
+            if any(lo >= hi for lo, hi in inter):
+                skipped += len(r["chunks"])
+                continue
+            local = tuple((lo - b0, hi - b0) for (lo, hi), (b0, _) in zip(inter, pidx))
+            part, d, sk = self._piece_region(r, local)
+            decoded += d
+            skipped += sk
+            out[tuple(slice(lo - a0, hi - a0)
+                      for (lo, hi), (a0, _) in zip(inter, region))] = part
+            filled += part.size
+        self._count(chunks_decoded=decoded, chunks_skipped=skipped)
+        if filled != out.size:
+            raise IOError(f"{name}: region {region} not fully covered by saved "
+                          f"pieces ({filled} of {out.size} elements)")
+        return out, dtype_name, quant, scale
+
     def read_payload(self, name: str, *, parallel: bool = True
                      ) -> tuple[np.ndarray, str, str, float | None]:
         """Stored (post-decompress, pre-dequantize) payload of a
@@ -705,18 +1003,60 @@ class CheckpointReader:
 @dataclass(frozen=True)
 class TensorSpec:
     """Allocation-free restore template leaf: where and as what a tensor
-    should land (the port's ``jax.ShapeDtypeStruct`` with a sharding)."""
+    should land (the port's ``jax.ShapeDtypeStruct`` with a sharding). With
+    a ``mesh`` and ``placements`` it restores as a ``DTensor`` of which this
+    rank holds its region, on ``device``."""
 
     shape: tuple[int, ...]
     dtype: torch.dtype
     device: torch.device
+    mesh: Any = None
+    placements: tuple | None = None
 
 
 def _leaf_device(leaf) -> torch.device | None:
-    """Target device of a template leaf; None for host (numpy/scalar)."""
+    """Target device of a template leaf (a ``DTensor``'s: its local
+    shard's); None for host (numpy/scalar)."""
     if isinstance(leaf, (torch.Tensor, TensorSpec)):
-        return torch.device(leaf.device)
+        return torch.device(_local(leaf).device if isinstance(leaf, DTensor)
+                            else leaf.device)
     return None
+
+
+def _leaf_sharding(leaf) -> shd.Sharding | None:
+    """The mesh and placements a template leaf restores onto, or None."""
+    if isinstance(leaf, TensorSpec) and leaf.mesh is not None:
+        return shd.Sharding(leaf.mesh, tuple(leaf.placements))
+    return _layout(leaf)
+
+
+def _region(sharding: shd.Sharding, leaf) -> Index:
+    """This rank's region of a sharded template leaf."""
+    (region,) = shd.addressable_shard_spans(sharding.mesh, sharding.placements,
+                                            tuple(leaf.shape))
+    return region
+
+
+def _region_tensor(leaf, payload, dtype_name: str, quant: str, scale
+                   ) -> torch.Tensor:
+    """A region's payload on the template leaf's device, in its dtype: an
+    int8 region bound for the card crosses at 1/4 width and widens there
+    (the dequantize kernel; bit-identical to ``finish_payload``), any other
+    is finished on the host first."""
+    dev = _leaf_device(leaf)
+    if (quant == "int8" and dev.type == "cuda"
+            and leaf.dtype in (torch.float32, torch.bfloat16, torch.float16)
+            and leaf.dtype == ser.torch_dtype(dtype_name)):
+        from ..kernels.quantize import dequantize_int8
+        return dequantize_int8(_tensor_from_payload(payload, "int8", dev),
+                               scale, dtype=leaf.dtype)
+    if quant:
+        payload = ser.finish_payload(payload, dtype_name=dtype_name,
+                                     quant=quant, scale=scale)
+    return _to_template_dtype(_tensor_from_payload(payload, dtype_name, dev),
+                              leaf)
+
+
 
 
 def _check_template(reader: CheckpointReader, named: dict) -> None:
@@ -766,17 +1106,27 @@ def restore_to_template(reader: CheckpointReader, template) -> Any:
 
     Template leaves may be torch tensors or ``TensorSpec``s (restored onto
     their device, in their dtype), numpy arrays (host), or python scalars.
+    A ``DTensor`` leaf, or a ``TensorSpec`` with a mesh, restores as a
+    ``DTensor`` holding only this rank's region, assembled from the pieces
+    of whatever mesh saved it.
     Every leaf decodes in parallel on the host (``read_many``) and int8
     payloads dequantize on the host; see ``restore_to_template_streaming``
     for the pipelined restore that widens on the device.
     """
     named = ser.flatten_state(template)
     _check_template(reader, named)
-    host = reader.read_many(list(named))
+    sharded = {n: _leaf_sharding(leaf) for n, leaf in named.items()}
+    host = reader.read_many([n for n in named if sharded[n] is None])
     out = {}
     for name, leaf in named.items():
         dev = _leaf_device(leaf)
-        if dev is None:
+        if sharded[name] is not None:
+            # this rank's region only, assembled from the saved pieces
+            arr = reader.read_slice(name, _region(sharded[name], leaf))
+            out[name] = shd.from_local(_to_template_dtype(_tensor_from_payload(
+                arr, reader.dtype_name(name), dev), leaf), sharded[name],
+                tuple(leaf.shape))
+        elif dev is None:
             out[name] = _host_leaf_value(leaf, host[name], reader.dtype_name(name))
         else:
             out[name] = _to_template_dtype(_tensor_from_payload(
@@ -795,6 +1145,13 @@ def restore_to_template_streaming(reader: CheckpointReader, template) -> Any:
     width and widen on the device (``kernels.quantize.dequantize_int8_many``).
     Leaves saved as several pieces assemble on the host (``read_slice``)
     first. Bit-identical to ``restore_to_template``.
+
+    A sharded template leaf (``"sharded"`` plan) decodes only this rank's
+    region (``addressable_shard_spans``; ``CheckpointReader
+    .read_region_payload`` decodes only the chunks it touches), copies it to
+    the device, widens an int8 region there with the record's tensor-global
+    scale, and becomes a ``DTensor``. No rank returns before every rank has
+    materialized its shards (``multihost.sync_global_devices``).
     """
     from ..kernels.quantize import dequantize_int8_many
 
@@ -803,9 +1160,13 @@ def restore_to_template_streaming(reader: CheckpointReader, template) -> Any:
     ex = chunkstore.restore_executor()
 
     plans: dict[str, str] = {}
+    regions: dict[str, Future] = {}
     for name, leaf in named.items():
         dev = _leaf_device(leaf)
         rec = reader.single_piece_record(name)
+        if _leaf_sharding(leaf) is not None:
+            plans[name] = "sharded"
+            continue
         if dev is None or dev.type != "cuda" or rec is None:
             plans[name] = "host" if dev is None else "assembled"
             continue
@@ -820,8 +1181,15 @@ def restore_to_template_streaming(reader: CheckpointReader, template) -> Any:
             return reader.read_slice(name, None, parallel=False)
         return reader.read_payload(name, parallel=False)
 
-    order = sorted(named, key=lambda n: plans[n] != "quantized")
+    order = sorted((n for n in named if plans[n] != "sharded"),
+                   key=lambda n: plans[n] != "quantized")
     resolve, futs = _submit_leaf_jobs(ex, order, reader.stored_nbytes, _run_one)
+    for name, leaf in named.items():
+        if plans[name] == "sharded":
+            # per-shard enqueue: a decode job for this rank's region only
+            regions[name] = ex.submit(reader.read_region_payload, name,
+                                      _region(_leaf_sharding(leaf), leaf))
+            futs.append(regions[name])
     out = {}
     try:
         qnames = [n for n in order if plans[n] == "quantized"]
@@ -836,6 +1204,10 @@ def restore_to_template_streaming(reader: CheckpointReader, template) -> Any:
             for name, t in zip(qnames, dequantize_int8_many(
                     q_devs, q_scales, q_dtypes)):
                 out[name] = t
+        for name, fut in regions.items():
+            leaf = named[name]
+            out[name] = shd.from_local(_region_tensor(leaf, *fut.result()),
+                                       _leaf_sharding(leaf), tuple(leaf.shape))
         for name in order:
             plan, leaf = plans[name], named[name]
             if plan == "quantized":
@@ -858,7 +1230,11 @@ def restore_to_template_streaming(reader: CheckpointReader, template) -> Any:
             f.cancel()
         futures_wait(futs)
         raise
-    if any(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+    if any(isinstance(t, torch.Tensor) and _local(t).device.type == "cuda"
            for t in out.values()):
         torch.cuda.synchronize()        # the restore ends with its transfers
+    # pod rendezvous: no participant takes its first post-restore step until
+    # every participant has materialized its shards; a lone process with no
+    # barrier installed passes straight through
+    multihost.sync_global_devices("spoton:restore_streaming")
     return ser.unflatten_like(template, out)

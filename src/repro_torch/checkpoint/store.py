@@ -19,6 +19,15 @@ the same ``root``. Its invariants:
   per-tensor chunk references so any retained step reassembles from the pool.
   ``mode="full"`` keeps the original self-contained v1 shard files; both
   formats restore through the same reader.
+* **Saves by several ranks** — in a process group of more than one rank,
+  every rank writes its own pieces (chunks, or ``shard_p{rank:03d}.spot``),
+  rank 0 gathers every rank's tensor records, writes the one manifest and
+  commits, and every rank learns the outcome: one failed rank fails the
+  save, and a lost one breaks the barrier's time limit instead of hanging.
+  Urgent saves and the others run their collectives on two gloo groups of
+  their own, so an urgent save may start while a periodic save is still
+  writing. Every rank constructs the store, in the same order: its
+  construction makes those groups.
 """
 
 from __future__ import annotations
@@ -34,11 +43,14 @@ from concurrent.futures import CancelledError
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import torch.distributed as dist
+
 from . import backend as backend_mod
 from . import chunkstore
 from . import manifest as mf
 from . import serialize as ser
 from . import sharded
+from ..distributed import multihost
 from ..faults import inject as faults
 from .ioutil import fsync_dir
 
@@ -159,6 +171,17 @@ class CheckpointStore:
         # commit, off the critical path (e.g. compile-cache retention gc) —
         # failures are swallowed, a janitor must never fail a save
         self.post_commit: list[Callable[[], None]] = []
+        # the last restore's reader accounting (``CheckpointReader
+        # .region_stats``): chunks a sharded restore decoded and skipped
+        self.last_region_stats: dict = {}
+        # in a group of several ranks, the collectives of urgent saves and
+        # of the others each on a group of their own: an urgent save's
+        # thread may start while the periodic writer's save is between two
+        # collectives, and on one group the two threads' collectives would
+        # pair differently on each rank
+        self._groups = ({"urgent": multihost.new_group(),
+                         "other": multihost.new_group()}
+                        if multihost.process_count() > 1 else {})
         os.makedirs(root, exist_ok=True)
 
     # -- write ---------------------------------------------------------------
@@ -247,8 +270,15 @@ class CheckpointStore:
             self._phase("committed")
             return True
 
+    def save_group(self, kind: str):
+        """The process group a save of ``kind`` runs its collectives on
+        (``extract_snapshot``'s quantize reduce too); None in one process."""
+        return self._groups.get("urgent" if kind == "termination" else "other")
+
     def save_snapshot(self, snapshot: sharded.Snapshot, *, kind: str = "transparent",
                       extra: dict | None = None) -> CheckpointInfo:
+        if multihost.process_count() > 1:
+            return self._save_snapshot_ranks(snapshot, kind=kind, extra=extra)
         t0 = self.time_fn()
         legs = snapshot.legs
         if self._spooled_commits:
@@ -265,27 +295,15 @@ class CheckpointStore:
         parked = False
         try:
             self._phase("staged")
-            if self.mode == "delta":
-                # dirty chunks land in the shared pool (atomic, idempotent
-                # per chunk); the step dir itself holds only the manifest, so
-                # the stage->rename->marker protocol is unchanged. Chunks from
-                # a writer killed here are orphans, swept by gc once old.
-                # Termination saves encode on the scheduler's URGENT lane
-                # so the notice window never queues behind periodic save
-                # traffic — and periodic encodes yield their workers to it.
-                records, new_bytes = sharded.write_snapshot_delta(
-                    snapshot, self.pool, compress=self.compress,
-                    quantize_moments=self.quantize_moments,
-                    chunk_size=self.chunk_size, index=self._delta_index,
-                    pin=lambda h: self._pin(h, pinned),
-                    executor=(chunkstore.urgent_executor()
-                              if kind == "termination" else None),
-                    urgent=kind == "termination")
-            else:
-                records = sharded.write_snapshot(
-                    stage, snapshot, compress=self.compress,
-                    quantize_moments=self.quantize_moments)
-                new_bytes = sum(r["nbytes"] for r in records)
+            # delta: dirty chunks land in the shared pool (atomic, idempotent
+            # per chunk); the step dir itself holds only the manifest, so
+            # the stage->rename->marker protocol is unchanged. Chunks from
+            # a writer killed here are orphans, swept by gc once old.
+            # Termination saves encode on the scheduler's URGENT lane
+            # so the notice window never queues behind periodic save
+            # traffic — and periodic encodes yield their workers to it.
+            records, new_bytes = self._write_pieces(stage, snapshot, kind,
+                                                    pinned)
             self._phase("shards_written")
             man = mf.Manifest(
                 step=snapshot.step, kind=kind, created_at=self.time_fn(),
@@ -367,6 +385,137 @@ class CheckpointStore:
                               d2h_bytes_skipped=snapshot.d2h_skipped,
                               save_stall_ms=snapshot.stall_s * 1e3,
                               spooled=parked, legs=legs.as_dict())
+
+    def _write_pieces(self, stage: str, snapshot: sharded.Snapshot, kind: str,
+                      pinned: list, process_index: int = 0
+                      ) -> tuple[list[dict], int]:
+        """This process's pieces into the pool (delta) or its shard file in
+        ``stage`` (full): (tensor records, bytes physically written)."""
+        if self.mode == "delta":
+            return sharded.write_snapshot_delta(
+                snapshot, self.pool, compress=self.compress,
+                quantize_moments=self.quantize_moments,
+                chunk_size=self.chunk_size, index=self._delta_index,
+                pin=lambda h: self._pin(h, pinned),
+                executor=(chunkstore.urgent_executor()
+                          if kind == "termination" else None),
+                urgent=kind == "termination")
+        records = sharded.write_snapshot(
+            stage, snapshot, process_index=process_index,
+            compress=self.compress, quantize_moments=self.quantize_moments)
+        return records, sum(r["nbytes"] for r in records)
+
+    def _save_snapshot_ranks(self, snapshot: sharded.Snapshot, *, kind: str,
+                             extra: dict | None) -> CheckpointInfo:
+        """``save_snapshot`` in a process group of several ranks, called by
+        every rank with its own snapshot of the same step, the saves of one
+        group (``save_group(kind)``) in the same order on every rank. Each
+        rank writes its pieces; after a barrier rank 0 gathers the records
+        (``dist.gather_object``), writes the one manifest (the reference's
+        record layout: one record per piece, with its global index) and
+        commits; the outcome is broadcast. A rank whose write failed fails
+        the save on every rank, and nothing is committed. Every wait is
+        bounded by the barrier's time limit (``multihost``): a lost rank
+        raises instead of hanging. No outage spooling: a pool that cannot
+        make every chunk durable fails the save."""
+        t0 = self.time_fn()
+        legs = snapshot.legs
+        rank, world = multihost.process_index(), multihost.process_count()
+        group = self.save_group(kind)
+        final = os.path.join(self.root, mf.step_dirname(snapshot.step))
+        box = [final + f".tmp-{self._stage_token}-{uuid.uuid4().hex[:8]}"
+               if rank == 0 else None]
+        multihost.sync_global_devices("spoton:save_begin", group)
+        dist.broadcast_object_list(box, src=0, group=group)
+        stage = box[0]
+        if rank == 0:
+            os.makedirs(stage, exist_ok=True)
+            with self._stage_lock:
+                self._inflight_stages.add(stage)
+        multihost.sync_global_devices("spoton:save_staged", group)
+        pinned: list[str] = []
+        mine: Any
+        try:
+            try:
+                self._phase("staged")
+                mine = self._write_pieces(stage, snapshot, kind, pinned, rank)
+                self._phase("shards_written")
+            except Exception as e:
+                mine = f"rank {rank}: {type(e).__name__}: {e}"
+            finally:
+                snapshot.release_staging()
+            multihost.sync_global_devices("spoton:save_written", group)
+            gathered = [None] * world if rank == 0 else None
+            dist.gather_object(mine, gathered, dst=0, group=group)
+            outcome: Any = None
+            if rank == 0:
+                outcome = self._commit_gathered(stage, final, kind, snapshot,
+                                                gathered, extra, legs)
+            box = [outcome]
+            multihost.sync_global_devices("spoton:save_committed", group)
+            dist.broadcast_object_list(box, src=0, group=group)
+            outcome = box[0]
+        finally:
+            with self._stage_lock:
+                self._inflight_stages.discard(stage)
+            self._unpin_all(pinned)
+        if isinstance(outcome, str):
+            raise RuntimeError(f"step {snapshot.step} save failed: {outcome}")
+        records, new_bytes, committed = outcome
+        if committed and snapshot.on_committed is not None:
+            try:
+                snapshot.on_committed(records)
+            except Exception as e:  # pragma: no cover - defensive
+                logging.getLogger("spoton").warning(
+                    "post-commit delta bookkeeping failed: %s", e)
+        if rank == 0:
+            w1 = time.perf_counter()
+            self.gc(sweep_chunks=None)
+            chunkstore.charge_leg(legs, "gc_s", w1)
+        return CheckpointInfo(step=snapshot.step, path=final, kind=kind,
+                              nbytes=sum(r["nbytes"] for r in records),
+                              elapsed_s=self.time_fn() - t0,
+                              new_bytes=new_bytes,
+                              d2h_bytes=snapshot.d2h_bytes or snapshot.nbytes,
+                              d2h_bytes_skipped=snapshot.d2h_skipped,
+                              save_stall_ms=snapshot.stall_s * 1e3,
+                              legs=legs.as_dict())
+
+    def _commit_gathered(self, stage, final, kind, snapshot, gathered, extra,
+                         legs):
+        """Rank 0's half of a save by several ranks: one manifest over every
+        rank's records, then the commit. Returns (records, bytes written,
+        committed), or a string naming what failed."""
+        failed = [g for g in gathered if isinstance(g, str)]
+        if failed:
+            return "; ".join(failed)
+        # the reference's layout: leaves in state order, pieces in order
+        order = {n: i for i, n in enumerate(snapshot.leaf_order)}
+        records = sorted((r for recs, _n in gathered for r in recs),
+                         key=lambda r: (order[r["name"].rsplit("#", 1)[0]],
+                                        int(r["name"].rsplit("#", 1)[1])))
+        try:
+            man = mf.Manifest(
+                step=snapshot.step, kind=kind, created_at=self.time_fn(),
+                tensors=records, leaf_order=snapshot.leaf_order,
+                treedef_repr=snapshot.treedef_repr, mesh=snapshot.mesh,
+                extra={**self.tags, **(extra or {})},
+                format_version=2 if self.mode == "delta" else 1,
+                chunk_size=self.chunk_size if self.mode == "delta" else None)
+            w1 = time.perf_counter()
+            mf.write_manifest(stage, man)
+            w1 = chunkstore.charge_leg(legs, "manifest_s", w1)
+            self._phase("manifest_written")
+            flush = getattr(self.pool, "flush_uploads", None)
+            hashes = {c["h"] for r in records for c in r.get("chunks", ())}
+            if flush is not None and flush(hashes):
+                return "object store outage: chunks not durable"
+            self._phase("uploads_flushed")
+            committed = self._finish_commit(stage, final, kind)
+            chunkstore.charge_leg(legs, "commit_s", w1)
+        except Exception as e:
+            return f"rank 0 commit: {type(e).__name__}: {e}"
+        return records, sum(n for _recs, n in gathered), committed
 
     def urgent_digest_chunk(self, name: str, t) -> int | None:
         """The chunk size at which an urgent save digests leaf ``name`` on
@@ -506,6 +655,7 @@ class CheckpointStore:
             state = sharded.restore_to_template_streaming(reader, template)
         else:
             state = sharded.restore_to_template(reader, template)
+        self.last_region_stats = dict(reader.region_stats)
         return state, man
 
     # -- maintenance -----------------------------------------------------------

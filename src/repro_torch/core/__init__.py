@@ -1,7 +1,6 @@
 """The Spot-on checkpoint coordinator, spot-instance simulation, multi-cloud
 provider backends, pricing, the fleet coordinator over one shared store and
-elastic re-planning (PyTorch port; building a device mesh from a plan comes
-with the multi-device layer)."""
+elastic re-planning onto a ``DeviceMesh`` (PyTorch port)."""
 
 from .clock import Clock, VirtualClock, WallClock
 from .coordinator import (CoordinatorStats, Signal, SpotOnCoordinator,

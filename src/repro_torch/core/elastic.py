@@ -4,16 +4,18 @@ The paper restarts on "a new instance" of the same VM size. At pod scale the
 replacement capacity may be *smaller* (a pod is gone) or differently shaped;
 because manifests store global shapes and per-piece indices (checkpoint/
 sharded.py), restoring under any mesh is just re-slicing. This module is the
-policy layer's planning half: pick a (data, model) mesh shape for the
-capacity that is left, and say which global byte spans a fleet member owns
-under it (the ``addressable`` predicate of ``DeviceDeltaTracker.rescale``).
-Plans are plain shapes: building a device mesh from one, and restoring a
-template onto it, come with the port's multi-device layer.
+policy layer: pick a (data, model) mesh shape for the capacity that is left,
+build it as a ``DeviceMesh`` over the ranks of the process group, say which
+global byte spans a fleet member owns under it (the ``addressable``
+predicate of ``DeviceDeltaTracker.rescale``), and restore a template
+rebuilt for the new mesh.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..distributed.multihost import process_count
 
 
 @dataclass(frozen=True)
@@ -27,6 +29,18 @@ class MeshPlan:
         for s in self.shape:
             n *= s
         return n
+
+    def build(self, devices=None, *, device_type: str = "cuda"):
+        """A ``DeviceMesh`` of this plan over the first ``n_devices`` of
+        ``devices`` (default: the ranks of the process group; a process with
+        no group is a world of one rank)."""
+        from ..launch.mesh import make_mesh
+        devices = list(range(process_count())) if devices is None else list(devices)
+        n = self.n_devices
+        if len(devices) < n:
+            raise ValueError(f"need {n} devices, have {len(devices)}")
+        return make_mesh(self.shape, self.axes, devices=devices[:n],
+                         device_type=device_type)
 
     def axis_size(self, axis: str) -> int:
         """Size of ``axis`` in this plan (1 when the plan has no such axis)."""
@@ -88,3 +102,13 @@ def member_addressable(plan: MeshPlan, member_index: int, *,
         return slice_lo <= lo and hi <= slice_hi
 
     return owns
+
+
+def elastic_restore(store, template_fn, mesh, *, streaming: bool = False):
+    """Restore the latest valid checkpoint onto ``mesh``.
+
+    ``template_fn(mesh) -> state-template`` rebuilds the template leaves
+    (``DTensor``s or ``TensorSpec``s with the new mesh's placements; global
+    shapes are mesh-independent by construction). Returns (state, manifest).
+    """
+    return store.restore(template_fn(mesh), streaming=streaming)

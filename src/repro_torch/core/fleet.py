@@ -36,9 +36,9 @@ import math
 from dataclasses import dataclass, field, replace
 
 import numpy as np
-import torch
 
 from ..checkpoint.store import CheckpointStore
+from ..distributed.sharding import elastic_rules
 from .clock import Clock
 from .coordinator import Signal, SpotOnCoordinator
 from .cost import CostAccountant
@@ -49,25 +49,6 @@ from .providers import CloudProvider, get_provider
 from .spot_sim import EvictionSchedule, InstancePool, NoEviction, SpotInstance
 
 log = logging.getLogger("spoton.fleet")
-
-
-def _local_device_count() -> int:
-    """Devices this process could host a plan on: its GPUs, else the one
-    host CPU."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 1
-
-
-def _parallel_degrees(plan: MeshPlan, model_axis: str = "model"
-                      ) -> tuple[int, int]:
-    """(data-parallel, model-parallel) degree of ``plan``: every axis but
-    ``model_axis`` carries data parallelism (a plan of one axis, the model
-    axis, doubles it as the data axis)."""
-    tp = plan.axis_size(model_axis)
-    data = [s for s, a in zip(plan.shape, plan.axes) if a != model_axis]
-    dp = 1
-    for s in data or plan.shape:
-        dp *= int(s)
-    return dp, tp
 
 
 @dataclass(frozen=True)
@@ -186,11 +167,13 @@ class FleetCoordinator:
                 model_parallel=self.spec.model_parallel)
             event["mesh_shape"] = plan.shape
             event["mesh_axes"] = plan.axes
-            # the parallel degrees only when this process has enough
-            # devices to host the plan; a real fleet hosts it on its own
-            # chips
-            if plan.n_devices <= _local_device_count():
-                event["dp"], event["tp"] = _parallel_degrees(plan)
+            try:
+                # materialize only where the process group has enough
+                # ranks; the fleet reads the degrees, so a CPU mesh serves
+                rules = elastic_rules(plan.build(device_type="cpu"))
+                event["dp"], event["tp"] = rules.dp_size, rules.tp_size
+            except ValueError:
+                pass  # plan recorded; a real fleet builds it on its own chips
         except ValueError as e:
             event["error"] = str(e)  # capacity can't host the MP degree
         # rescale-stable fingerprints: each member remaps its device-delta

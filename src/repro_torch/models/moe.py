@@ -115,10 +115,17 @@ def moe_block_dense(x: torch.Tensor, w: dict, cfg: MoEConfig, *, act: str,
 
 
 def _n_groups(total_tokens: int) -> int:
-    """Local routing groups on one device: tokens route within groups of
-    at most ``GROUP_TOKENS_TARGET`` where the count halves evenly, so the
-    capacity follows the group's token count, not the batch's."""
-    g = 1
+    """GShard local groups: tokens route within groups of at most
+    ``GROUP_TOKENS_TARGET`` where the count halves evenly, so the capacity
+    follows the group's token count, not the batch's. G starts from the
+    data-parallel degree of the installed sharding rules (1 without), so
+    groups never straddle data shards."""
+    from ..distributed.sharding import current_rules
+    r = current_rules()
+    g = r.dp_size if r is not None else 1
+    while total_tokens % g != 0 or total_tokens // g < 1:
+        g //= 2
+    g = max(g, 1)
     while (total_tokens // g > GROUP_TOKENS_TARGET
            and total_tokens % (g * 2) == 0):
         g *= 2

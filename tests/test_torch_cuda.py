@@ -1230,3 +1230,91 @@ def test_peer_warm_restore_onto_the_card_is_bitwise(cuda, tmp_path):
             shutil.rmtree(exchange.members[0][0].root, ignore_errors=True)
     finally:
         exchange.close()
+
+
+TWO_RANK_CARD = """
+import json, sys
+import torch, torch.distributed as dist
+rank, init, root = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+from repro_torch.checkpoint import AsyncCheckpointer, CheckpointStore, TensorSpec
+from repro_torch.checkpoint import serialize as ser
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import _lib
+from repro_torch.kernels.quantize.ref import (dequantize_int8_ref,
+                                              quantize_int8_ref)
+from repro_torch.launch.mesh import make_mesh
+
+g = torch.Generator(device=dev).manual_seed(5)
+full = torch.randn(1024, 384, generator=g, device=dev) * 1e-3
+# the halves differ in range: a per-shard scale would show
+full[512:] *= 7.0
+save_mesh = make_mesh((2, 1), ("data", "model"))
+sh = shd.Sharding(save_mesh, shd.placements(("data", None), save_mesh))
+state = {"opt": {"mu": {"w": shd.distribute(full, sh)}}, "step": 3}
+store = CheckpointStore(root, chunk_size=64 * 1024, compress=False,
+                        quantize_moments=True)
+_lib.reset_launches()
+ac = AsyncCheckpointer(store)
+ac.save_urgent(3, state)
+ac.close()
+saved = dict(_lib.LAUNCHES)
+q_want, scale_want = quantize_int8_ref(full)
+_man, reader = store.latest_valid()
+q, _dt, quant, scale = reader.read_region_payload(
+    "opt/mu/w", ((0, 1024), (0, 384)))
+reader.close()
+assert quant == "int8" and scale == scale_want
+assert torch.equal(torch.from_numpy(q), q_want.cpu())
+# restore the columns onto (1, 2): int8 regions widened on the card
+mesh = make_mesh((1, 2), ("data", "model"))
+pl = shd.placements((None, "model"), mesh)
+_lib.reset_launches()
+got, man = store.restore({"opt": {"mu": {"w": TensorSpec(
+    (1024, 384), torch.float32, dev, mesh, pl)}}, "step": 0}, streaming=True)
+restored = dict(_lib.LAUNCHES)
+t = got["opt"]["mu"]["w"]
+(region,) = shd.addressable_shard_spans(mesh, pl, (1024, 384))
+want = dequantize_int8_ref(q_want, scale_want, dtype=torch.float32)
+want = want[tuple(slice(a, b) for a, b in region)]
+assert t.to_local().device == dev and got["step"] == 3
+assert torch.equal(t.to_local().view(torch.int32), want.contiguous().view(torch.int32))
+print(json.dumps({"saved": saved, "restored": restored}))
+dist.destroy_process_group()
+"""
+
+
+def test_two_rank_sharded_urgent_save_and_region_restore(cuda, tmp_path):
+    """Two gloo ranks on the one card: an urgent save of a row-sharded
+    moment quantizes each shard on the card with the all-reduced scale
+    (the stored bytes equal the plain quantize of the whole tensor), and a
+    restore onto the other mesh axis widens each rank's int8 region on the
+    card, bit for bit with the plain dequantize."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    _lib.library()                    # built once, before the ranks start
+    init = f"file://{tmp_path / 'rdv'}"
+    procs = [subprocess.Popen([sys.executable, "-c", TWO_RANK_CARD, str(r),
+                               init, str(tmp_path / "store")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    for out, _err in outs:
+        res = json.loads(out.strip().splitlines()[-1])
+        assert res["saved"]["absmax"] >= 1 and res["saved"]["quantize"] >= 1
+        assert res["restored"]["dequantize"] >= 1

@@ -53,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.rglru_scan, repro_torch.kernels.ssm_scan, "
             "repro_torch.kernels.chunk_digest, "
             "repro_torch.checkpoint.peer_exchange, repro_torch.core.fleet, "
-            "repro_torch.core.elastic, repro_torch.models.ssm; "
+            "repro_torch.core.elastic, repro_torch.models.ssm, "
+            "repro_torch.distributed, repro_torch.distributed.multihost, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -10,8 +10,8 @@ warm-prefetch and seeding cases run both packages on the same state and
 compare the restored bits and the peer counters.
 
 Not twinned here: the spotlint lane-discipline cases (they need the port's
-own copy of the analyzer) and the multihost restore barrier (it needs the
-port's multi-device layer).
+own copy of the analyzer); the multihost restore barrier's twins are in
+``tests/test_torch_multihost.py``.
 """
 
 from __future__ import annotations
