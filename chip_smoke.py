@@ -47,10 +47,22 @@ seeded weights:
   train_gemma3    8 make_train_step steps of gemma3-1b (26 layers, bf16,
                   batch 2 x 2048), every attention layer through the flash
                   forward, dkv and dq kernels: step time, tokens/s, peak
-                  memory, a profiled step; a float32 one-period copy's
+                  memory, a profiled step; a step with each remat mode
+                  (none, dots, full: 26 or 52 forward launches, step time,
+                  peak memory; loss and every gradient leaf bit for bit
+                  alike) and one on two microbatches (within a stated
+                  tolerance of one); a float32 one-period copy's
                   gradients on the card against the same step on the host
   spot_loop_gemma3  the spot_loop contract at gemma3-1b's full width cut
                   to one period (6 layers), sequences of 1024
+  launch_train    python -m repro_torch.launch.train at gemma3-1b's full
+                  config (10 GB of state), remat full, 4 microbatches,
+                  twice in processes of their own sharing one
+                  --compile-cache-dir: uninterrupted (builds the kernel
+                  library there), then transparent with a wall-clock
+                  eviction (loads it without nvcc; exactly one eviction
+                  and one restore, no lost step, urgent saves within
+                  20 s, the final loss bit for bit the first run's)
   serve_gemma3,   batch 4, a 1984-token prompt, 64 greedy tokens through
   serve_recurrentgemma,  serve.make_prefill / make_decode_step (and
   serve_phi3,     serve.generate): prefill and decode tokens/s; a
@@ -134,17 +146,34 @@ GRAD_TOL = 2e-4                # backward kernels vs plain in float32, of
                                # gradient tolerance, 10 x 2e-5
 MODEL_GRAD_TOL = 1e-4          # card vs host gradients, of each leaf's max
 MODEL_LOSS_TOL = 1e-5          # card vs host loss, relative
+MB_LOSS_RTOL = 1e-3            # bf16 step on two microbatches vs one: loss,
+MB_GNORM_RTOL = 1e-2           # and gradient norm, relative (the same sums
+                               # of bf16 products over other GEMM shapes)
 SCAN_TOL = 1e-4                # selective scan vs plain: the reference's
 SFU_PER_SM_CLOCK = 16          # exponentials per SM per clock (H100)
 FP32_PER_SM_CLOCK = 128        # float32 instructions per SM per clock
 INT32_OPS_PER_SM_CLOCK = 64    # 32-bit integer multiply, shift and logic
                                # per SM per clock (H100)
 H100_SMS = 132
+SHA1_OPS_PER_BLOCK = 1016      # SHA-1's integer operations a 64-byte block
 ATT_TOL = 2e-5                 # attention kernels vs plain in float32, abs;
                                # their float32 log-sum-exp, abs and rel
 BF16_RTOL = 2 ** -7            # in bfloat16 each output within one bf16 ulp
                                # (+ ATT_TOL): both sides round nearly equal
                                # float32 values, so they differ by <= 1 ulp
+
+
+LT_BATCH, LT_SEQ, LT_MB = 8, 512, 4   # launch_train: the CLI's batch,
+                                      # sequence and microbatches
+LT_TARGET_S = 85.0             # launch_train: the uninterrupted run's steps
+LT_EVICT_LEAD_S = 6.0          # launch_train: the eviction comes this many
+                               # seconds of stepping (4 steps) before the end
+LT_PROVISION_S = 1.0           # launch_train: a replacement's provisioning
+URGENT_BUDGET_S = 20.0         # an urgent save's budget: the notice less
+                               # room for the step it follows
+CLI_KEYS = ("completed", "total_time_s", "final_loss", "steps_executed",
+            "lost_steps", "restores", "instances_used", "evictions",
+            "urgent_saves", "launches", "coordinator")
 
 
 class PhaseError(RuntimeError):
@@ -346,8 +375,10 @@ def chunk_digest_kernel(dev, leaves) -> dict:
     zlib's CRC-32), every chunk, on ragged, mixed-dtype cases in one call
     and at 1 MiB, 4 KiB and 64-byte chunks; then checked and timed on
     ``leaves``, the leaves a spot loop's urgent save digested (one launch
-    over all their 1 MiB chunks, as in the save). Its plain version runs on
-    the host, timed on the host's clock."""
+    over all their 1 MiB chunks, as in the save), and on one chunk alone.
+    Its plain version runs on the host, timed on the host's clock. Its
+    bound is the larger of the operations over every SM and one chunk's
+    serial SHA-1 chain on its one thread."""
     import torch
     from repro_torch.kernels.chunk_digest import (chunk_digests,
                                                   chunk_digests_ref)
@@ -372,18 +403,33 @@ def chunk_digest_kernel(dev, leaves) -> dict:
     got = chunk_digests(leaves, CHUNK).result()
     mismatched = sum(a != b for g_, w in zip(got, want) for a, b in zip(g_, w))
     need(mismatched == 0, f"{mismatched} chunk digests differ on the leaves")
+    del host
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
     n_chunks = sum(map(len, got))
     clock = sm_clock_mhz()
     int_rate = H100_SMS * INT32_OPS_PER_SM_CLOCK * clock * 1e6
+    # one chunk alone: the time a call takes whatever its chunk count, since
+    # one thread walks each chunk (the leaves' first 1 MiB)
+    one = next(t for t in leaves if t.numel() * t.element_size() >= CHUNK)
+    one = one.reshape(-1)[:CHUNK // one.element_size()]
+    need(chunk_digests([one], CHUNK).result()[0]
+         == chunk_digests_ref(one.cpu(), CHUNK),
+         "the one-chunk call's digest differs from hashlib/zlib")
+    one_ms = time_ms(lambda: chunk_digests([one], CHUNK), reps=5, runs=3)
+    # operations: SHA-1's ~1,016 integer operations a 64-byte block (80
+    # rounds and the schedule) and CRC-32's ~15 a word by slicing-by-4, 20
+    # a byte, over every SM; and one chunk's serial chain, which is SHA-1's
+    # block chain alone (the CRC is independent of it and could run on
+    # another thread): at most one operation a clock
+    ops_bound = bound(nbytes + n_chunks * 24, nbytes * 20, int_rate)
+    chain_ms = SHA1_OPS_PER_BLOCK / 64 * CHUNK / (clock * 1e6) * 1e3
+    row_bound = (chain_ms, "operations") if chain_ms > ops_bound[0] \
+        else ops_bound
     return {"chunk_digest": dict(
         ms=time_ms(lambda: chunk_digests(leaves, CHUNK), reps=5, runs=3),
-        plain_ms=plain_ms, plain_on="host", library_ms=None,
-        max_abs_err=float(mismatched), chunks=n_chunks,
-        # bytes: each leaf once, 24 bytes out a chunk; operations: SHA-1's
-        # ~1,016 integer operations a 64-byte block (80 rounds and the
-        # schedule) and CRC-32's ~15 a word by slicing-by-4, 20 a byte
-        bound=bound(nbytes + n_chunks * 24, nbytes * 20, int_rate),
+        one_chunk_ms=one_ms, plain_ms=plain_ms, plain_on="host",
+        library_ms=None, max_abs_err=float(mismatched), chunks=n_chunks,
+        bound=row_bound, ops_bound_ms=ops_bound[0], chain_bound_ms=chain_ms,
         sm_clock_mhz=clock, shape=[list(t.shape) for t in leaves],
         dtype=[str(t.dtype).replace("torch.", "") for t in leaves])}
 
@@ -1254,27 +1300,21 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
 
     class RecordingCoordinator(SpotOnCoordinator):
         """Keeps the state handed to each urgent save and the last restore
-        (the step is functional, so a held state stays unchanged), and
-        each urgent save's step, notice budget (the virtual clock's seconds
-        left, which the save waits for in real seconds), wall time on the
-        host's clock, whether it committed and its legs (the
-        coordinator's ``last_urgent_legs``: wall legs that partition the
-        save's wall time, and the threads' busy seconds); after a save
-        commits, its chunks are hashed on the host (``_hash_chunks``)."""
+        (the step is functional, so a held state stays unchanged); after
+        an urgent save commits, its chunks are hashed on the host
+        (``_hash_chunks``) into the coordinator's record of it
+        (``urgent_saves``: step, notice budget on the virtual clock, which
+        the save waits for in real seconds, wall time on the host's clock,
+        outcome, and legs that partition the wall time beside the
+        threads' busy seconds)."""
         urgent_state = None
         restored = None
 
         def _save_termination(self, step, state, deadline):
             self.urgent_state = state
-            budget = deadline - self.clock.now()
-            t0 = time.perf_counter()
             ok = super()._save_termination(step, state, deadline)
-            self.urgent_saves.append({"step": step, "budget_s": budget,
-                                      "wall_s": time.perf_counter() - t0,
-                                      "committed": ok,
-                                      "legs": self.last_urgent_legs,
-                                      **(_hash_chunks(self.store, step)
-                                         if ok else {})})
+            if ok:
+                self.urgent_saves[-1].update(_hash_chunks(self.store, step))
             return ok
 
         def restore_latest(self, template, **kw):
@@ -1291,7 +1331,6 @@ def run_loop(cfg, dev, root, *, mode, evict_s, steps, quantize_moments=False,
     policy = (CheckpointPolicy.transparent(30.0) if mode == "transparent"
               else CheckpointPolicy.off())
     coord = RecordingCoordinator(store, policy, clock, time_model=TimeModel())
-    coord.urgent_saves = []
     job = TrainJob(cfg=cfg, opt=AdamWConfig(total_steps=steps, warmup_steps=2,
                                             factored_second_moment=factored),
                    total_steps=steps, n_stages=2, batch=2, seq_len=seq_len)
@@ -1748,6 +1787,7 @@ def phase_train_gemma3(dev, card, launches) -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     b = batch()
     res["step_profile"] = _profile(lambda: step(state, b), 1)
+    res["remat"] = _remat_steps(cfg, opt, state, b, n_attn, launches)
     del state, b
     torch.cuda.empty_cache()
 
@@ -1802,6 +1842,225 @@ def phase_train_gemma3(dev, card, launches) -> dict:
         "card_s": card_s, "host_s": host_s}
     del grads_d, grads_h, params_h
     torch.cuda.empty_cache()
+    return res
+
+
+def _remat_steps(cfg, opt, state, b, n_attn, launches) -> dict:
+    """From one state and batch: a train step with each remat mode and one
+    with two microbatches (each after a warm-up step), its wall time, peak
+    memory and flash launches; then the loss and gradients of each remat
+    mode (``loss_and_grads``), which must equal "none"'s bit for bit. Two
+    microbatches must give "none"'s loss within ``MB_LOSS_RTOL`` and its
+    gradient norm within ``MB_GNORM_RTOL``, relative."""
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.kernels import _lib
+    from repro_torch.train import loss_and_grads, make_train_step
+    out = {}
+    for name, remat, mb in (("none", "none", 1), ("dots", "dots", 1),
+                            ("full", "full", 1),
+                            ("microbatches_2", "none", 2)):
+        step = make_train_step(cfg, opt, remat=remat, microbatches=mb)
+        step(state, b)                       # warm-up, outside the count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        _new, m = step(state, b)
+        metrics = {k: float(v) for k, v in m.items()}    # synchronises
+        wall = time.perf_counter() - t0
+        launches[f"train_gemma3_{name}"] = counted = dict(_lib.LAUNCHES)
+        del _new
+        per_pass = n_attn * mb
+        want_fwd = per_pass * (1 if remat == "none" else 2)
+        need(counted["flash_attention_fwd"] == want_fwd,
+             f"train_gemma3 {name}: {counted['flash_attention_fwd']} forward "
+             f"launches a step, expected {want_fwd}")
+        for k in ("flash_attention_dkv", "flash_attention_dq"):
+            need(counted[k] == per_pass, f"train_gemma3 {name}: {counted[k]} "
+                                         f"{k} launches, expected {per_pass}")
+        _need_variant(counted, f"train_gemma3 {name}", "bfloat16")
+        out[name] = {"remat": remat, "microbatches": mb, "step_s": wall,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "fwd_launches": counted["flash_attention_fwd"],
+                     "metrics": metrics}
+    for k in ("loss", "ce", "grad_norm"):
+        for name in ("dots", "full"):
+            need(out[name]["metrics"][k] == out["none"]["metrics"][k],
+                 f"train_gemma3 remat {name}: step {k} "
+                 f"{out[name]['metrics'][k]!r} != {out['none']['metrics'][k]!r}")
+    one, two = out["none"]["metrics"], out["microbatches_2"]["metrics"]
+    errs = {k: abs(two[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
+    need(errs["loss"] <= MB_LOSS_RTOL and errs["grad_norm"] <= MB_GNORM_RTOL,
+         f"train_gemma3: two microbatches against one: {errs}")
+    out["microbatches_2"]["rel_err_vs_one"] = errs
+    # the gradients themselves, every leaf, bit for bit across remat modes
+    want = None
+    for remat in ("none", "dots", "full"):
+        loss, ce, aux, grads = loss_and_grads(cfg, state["params"], b["inputs"],
+                                              b["labels"], remat=remat)
+        flat = ser.flatten_state(grads)
+        if want is None:
+            want, want_loss = flat, (loss, ce, aux)
+            continue
+        need(all(same_bits(x, y) for x, y in zip((loss, ce, aux), want_loss)),
+             f"train_gemma3 remat {remat}: loss, ce or aux differs from none's")
+        bad = [n for n, g in flat.items() if not same_bits(g, want[n])]
+        need(not bad, f"train_gemma3 remat {remat}: gradients {bad[:3]} differ "
+                      "from none's")
+        del grads, flat
+    out["grad_leaves_bitwise_equal"] = len(want)
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cli_run(args: list[str], log: Path, timeout: float) -> tuple[dict, dict, float]:
+    """``python -m repro_torch.launch.train`` in a process of its own: its
+    kernel_library line, its summary (the last output) and its wall
+    seconds; its output is kept in ``log``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    log.write_text(res.stdout + "\n--- stderr ---\n" + res.stderr)
+    need(res.returncode == 0, f"launch.train {' '.join(args)} exited "
+                              f"{res.returncode}: {res.stderr[-3000:]}")
+    lib = next(json.loads(line)["kernel_library"]
+               for line in res.stdout.splitlines()
+               if line.startswith('{"kernel_library"'))
+    return lib, json.loads(res.stdout[res.stdout.index("\n{") + 1:]), wall
+
+
+def _cli_step_s(cfg, dev) -> float:
+    """The CLI's train step in this process (remat full, LT_MB
+    microbatches, LT_BATCH x LT_SEQ): the median of three after a warm-up,
+    to size the runs."""
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    opt = AdamWConfig(total_steps=10)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, opt, remat="full", microbatches=LT_MB)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    tok = torch.randint(0, cfg.vocab_size, (LT_BATCH, LT_SEQ + 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    b = {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
+    times = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        _new, m = step(state, b)
+        float(m["loss"])
+        if i:
+            times.append(time.perf_counter() - t0)
+        del _new
+    del state
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def phase_launch_train(dev, workdir, launches) -> dict:
+    """The training entry point, ``python -m repro_torch.launch.train``, at
+    gemma3-1b's full config (10 GB of state) with remat full and LT_MB
+    microbatches, twice, in processes of their own that share one
+    ``--compile-cache-dir`` on the checkpoint volume:
+
+    - an uninterrupted run (``--mode off``) into an empty cache directory,
+      which builds the kernel library there with nvcc; its steps are sized
+      from this process's own step time to take about LT_TARGET_S;
+    - a transparent run with wall-clock evictions, which must load that
+      library without nvcc, see an eviction and a restore, lose no step,
+      commit each urgent save within URGENT_BUDGET_S, and end at the
+      uninterrupted run's final loss bit for bit. Its eviction period N
+      is the first run's stepping time L less LT_EVICT_LEAD_S: early
+      enough that the first eviction comes before the last step, late
+      enough that the restored run ends before the second. The period
+      repeats: each 30 s notice is ridden out and the restore follows, so
+      a run that outlasts 2N is evicted again at the replacement's boot,
+      and again after each later restore. That cascade fails the phase
+      (exactly one eviction), and the run's time limit stops it soon
+      after 2N rather than letting it eat the script's.
+    """
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3_1b")
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    torch.cuda.empty_cache()
+    step_s = _cli_step_s(cfg, dev)
+    steps = max(20, math.ceil(LT_TARGET_S / step_s))
+    vol = workdir / "volume"
+    cache = vol / "kernels"
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    common = ["--arch", "gemma3-1b", "--steps", str(steps), "--batch",
+              str(LT_BATCH), "--seq-len", str(LT_SEQ), "--remat", "full",
+              "--microbatches", str(LT_MB), "--seed", "0",
+              "--provision-delay", str(LT_PROVISION_S),
+              "--compile-cache-dir", str(cache), "--device", "cuda"]
+    lib_a, base, wall_a = _cli_run(
+        common + ["--mode", "off", "--ckpt-dir", str(vol / "a")],
+        logs / "launch_train_uninterrupted.log", 150 + 2 * LT_TARGET_S)
+    shutil.rmtree(vol / "a", ignore_errors=True)
+    L = base["total_time_s"]
+    # one eviction at N: the restored run ends near L + notice (30 s) +
+    # provision + restore, before the second eviction at 2N while the
+    # restore takes under L - 2 * lead - 31 s (42 s at L = 85); the first
+    # comes before the last step while the second run is not faster by
+    # the lead
+    every = L - LT_EVICT_LEAD_S
+    lib_b, ev, wall_b = _cli_run(
+        common + ["--mode", "transparent", "--interval", "600",
+                  "--simulate-eviction-every", f"{every:.1f}",
+                  "--ckpt-dir", str(vol / "b")],
+        logs / "launch_train_evicted.log", 2 * every + 60)
+    shutil.rmtree(vol / "b", ignore_errors=True)
+    launches["launch_train"] = {
+        k: base["launches"][k] + ev["launches"][k] for k in base["launches"]}
+    res = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "batch": LT_BATCH, "seq_len": LT_SEQ, "remat": "full",
+                      "microbatches": LT_MB, "steps": steps},
+           "step_s_in_process": step_s, "evict_every_s": every,
+           # seconds between the evicted run's end and the second eviction
+           "margin_to_second_eviction_s": 2 * every - ev["total_time_s"],
+           "urgent_margin_s": [URGENT_BUDGET_S - u["wall_s"]
+                               for u in ev["urgent_saves"]],
+           "uninterrupted": {"kernel_library": lib_a, "wall_s": wall_a,
+                             **{k: base[k] for k in CLI_KEYS}},
+           "evicted": {"kernel_library": lib_b, "wall_s": wall_b,
+                       **{k: ev[k] for k in CLI_KEYS}},
+           "cold_build_s": lib_a["seconds"], "cached_load_s": lib_b["seconds"]}
+    need(base["completed"] and ev["completed"], "a CLI run did not complete")
+    need(lib_a["built"] is True and lib_a["dir"] == str(cache),
+         f"the first run did not build the library in the cache: {lib_a}")
+    need(lib_b["built"] is False and lib_b["dir"] == str(cache),
+         f"the second run did not load the cached library: {lib_b}")
+    need(ev["evictions"] == 1 and ev["restores"] == 1,
+         f"the evicted run saw {ev['evictions']} evictions and "
+         f"{ev['restores']} restores (evicting every {every:.1f} s of "
+         f"L = {L} s)")
+    need(ev["lost_steps"] == 0, f"the evicted run lost {ev['lost_steps']} "
+                                f"steps: {ev['urgent_saves']}")
+    for u in ev["urgent_saves"]:
+        need(u["committed"] and u["wall_s"] <= min(URGENT_BUDGET_S,
+                                                   u["budget_s"]),
+             f"an urgent save missed its budget: {u}")
+    need(ev["final_loss"] == base["final_loss"],
+         f"final loss {ev['final_loss']!r} != uninterrupted "
+         f"{base['final_loss']!r}")
+    for run, rep in (("uninterrupted", base), ("evicted", ev)):
+        per_pass = n_attn * LT_MB * rep["steps_executed"]
+        c = rep["launches"]
+        need(c["flash_attention_fwd"] == 2 * per_pass
+             and c["flash_attention_dkv"] == per_pass == c["flash_attention_dq"],
+             f"launch_train {run}: flash launches {c['flash_attention_fwd']}, "
+             f"{c['flash_attention_dkv']}, {c['flash_attention_dq']} for "
+             f"{rep['steps_executed']} steps")
+        _need_variant(c, f"launch_train {run}", "bfloat16")
+    need(ev["launches"]["chunk_digest"] >= 1,
+         "the evicted run's urgent saves launched no chunk digest")
     return res
 
 
@@ -2677,6 +2936,7 @@ def main() -> int:
                 get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
                 workdir / "gemma3", STEPS, launches, name="spot_loop_gemma3",
                 seq_len=LOOP_S),
+            "launch_train": lambda: phase_launch_train(dev, workdir, launches),
             "serve_gemma3": lambda: phase_serve("gemma3_1b", dev, workdir,
                                                 card, launches),
             "serve_recurrentgemma": lambda: phase_serve(

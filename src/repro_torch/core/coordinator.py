@@ -236,9 +236,16 @@ class SpotOnCoordinator:
         # partition ``wall_s``; ``*_busy_s`` sum the threads' time);
         # empty when that save did not commit
         self.last_urgent_legs: dict[str, float] = {}
+        # one record per urgent save: its step, its notice budget (seconds
+        # left before the deadline when it began), its wall seconds,
+        # whether it committed and its legs
+        self.urgent_saves: list[dict] = []
         self._last_periodic_at = clock.now()
         self._handled_notices: set[str] = set()
         self._last_poll_at = -float("inf")
+        # set on attach: the first step with no notice pending reserves
+        # this instance's urgent-save buffers (on_step_end)
+        self._reserve_pending = False
         # MTTR bookkeeping: set at detach (the eviction moment), consumed by
         # the first completed step on the replacement instance
         self._evicted_at: float | None = None
@@ -274,6 +281,7 @@ class SpotOnCoordinator:
         self._metadata = metadata
         self._instance_name = name
         self._last_periodic_at = self.clock.now()
+        self._reserve_pending = self.policy.supports_on_demand
         if self.straggler is not None:
             self.straggler.reset()
 
@@ -439,7 +447,18 @@ class SpotOnCoordinator:
         return True
 
     def _save_termination(self, step: int, state, deadline: float) -> bool:
-        """Opportunistic: returns False if the notice window was missed."""
+        """Opportunistic: returns False if the notice window was missed.
+        Appends the save's record to ``urgent_saves``."""
+        budget = deadline - self.clock.now()
+        w0 = _time.perf_counter()
+        ok = self._urgent_save(step, state, deadline)
+        self.urgent_saves.append({"step": step, "budget_s": budget,
+                                  "wall_s": _time.perf_counter() - w0,
+                                  "committed": ok,
+                                  "legs": self.last_urgent_legs})
+        return ok
+
+    def _urgent_save(self, step: int, state, deadline: float) -> bool:
         t0 = self.clock.now()
         budget = deadline - t0
         self.last_urgent_legs = {}
@@ -590,6 +609,13 @@ class SpotOnCoordinator:
             # last stage boundary will be lost.
             self.provider.acknowledge(self._metadata, preempt)
             return Signal.PREEMPTING
+        if self._reserve_pending:
+            # an instance may be evicted before its first periodic save:
+            # pin its urgent save's buffers in the background from its
+            # first step, so that notice window pins none either
+            self._reserve_pending = False
+            STAGING.reserve(urgent_staging_sizes(
+                state_provider(), quantize_moments=self.store.quantize_moments))
         # 2b. rebalance recommendation (AWS): checkpoint proactively, keep going
         if rebalance is not None:
             self._handled_notices.add(rebalance.event_id)

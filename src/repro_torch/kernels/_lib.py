@@ -9,6 +9,12 @@ first use and again whenever a source (or the flag set) changes: the
 library's file name carries a hash of both. Nothing here runs at import
 time, so the package imports on machines without a GPU or a CUDA toolkit.
 
+The library lives in ``<repo>/build/repro_torch_kernels`` unless
+``set_build_dir`` moves it before the first ``library()`` call (the
+training entry point puts it on the checkpoint volume, so a replacement
+instance loads it instead of building it). Each load refreshes the
+library's mtime: to a sweep of that directory "old" means unused.
+
 No fast-math flags: ``--use_fast_math`` implies ``-ftz=true``, and flushing
 subnormals would change ``absmax`` and with it the stored checkpoint bytes.
 
@@ -67,7 +73,9 @@ LAUNCHES: dict[str, int] = {# an urgent save's chunk addresses and CRCs
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_build_dir: Path = BUILD_DIR
 _build_seconds: float | None = None
+_built: bool | None = None         # whether this process ran nvcc
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -204,32 +212,60 @@ def _build(target: Path) -> None:
     os.replace(tmp, target)  # spotlint: ignore[SPOT001,SPOT002]
 
 
+def set_build_dir(path) -> None:
+    """Build and load the library in ``path`` from now on. Raises once the
+    library is loaded from elsewhere: a process loads one library."""
+    global _build_dir
+    path = Path(path)
+    with _lock:
+        if _lib is not None and path != _build_dir:
+            raise RuntimeError(f"the kernel library is already loaded from "
+                               f"{_build_dir}; cannot move it to {path}")
+        _build_dir = path
+
+
+def build_dir() -> Path:
+    return _build_dir
+
+
+def _target() -> Path:
+    return _build_dir / f"libspot_kernels-{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    global _lib, _build_seconds
+    global _lib, _build_seconds, _built
     with _lock:
         if _lib is not None:
             return _lib
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA kernels need a GPU; none is available")
         import time
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = BUILD_DIR / f"libspot_kernels-{_digest()}.so"
+        _build_dir.mkdir(parents=True, exist_ok=True)
+        target = _target()
         t0 = time.perf_counter()
         # the build runs under the lock on purpose: every launch needs the
         # library, and SpotTrainer builds it before its first step, so no
         # save path waits here
-        with open(BUILD_DIR / "build.lock", "w") as lockf:  # spotlint: ignore[SPOT031]
+        with open(_build_dir / "build.lock", "w") as lockf:  # spotlint: ignore[SPOT031]
             fcntl.flock(lockf, fcntl.LOCK_EX)   # one build at a time across processes
-            if not target.exists():
+            built = not target.exists()
+            if built:
                 _build(target)
+            # a load is a use: the cache sweep removes what is old (one
+            # metadata write, under the lock like the build above)
+            for path in (target, target.with_suffix(".ptxas.log")):
+                try:
+                    os.utime(path)  # spotlint: ignore[SPOT031]
+                except OSError:
+                    pass
         _build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _lib = lib
+        _lib, _built = lib, built
         return lib
 
 
@@ -238,11 +274,17 @@ def build_seconds() -> float | None:
     return _build_seconds
 
 
+def built() -> bool | None:
+    """Whether this process's ``library()`` ran ``nvcc`` (False: it loaded
+    a library built before; None: not loaded yet)."""
+    return _built
+
+
 def ptxas_report() -> dict[str, dict[str, int]]:
     """{mangled kernel name: {"registers", "smem", "spill_stores",
     "spill_loads"}} from the ``ptxas -v`` output of the library's build
     ("smem": static shared memory only; the flash kernels' is dynamic)."""
-    log = BUILD_DIR / f"libspot_kernels-{_digest()}.ptxas.log"
+    log = _target().with_suffix(".ptxas.log")
     out: dict[str, dict[str, int]] = {}
     name = None
     for line in log.read_text().splitlines() if log.exists() else ():
@@ -270,7 +312,7 @@ def ptxas_warnings() -> list[str]:
     """The warnings of the library's ``ptxas`` runs, each naming the
     kernel it concerns: a wgmma serialised around its registers or a
     divergent path, a register limit not met."""
-    log = BUILD_DIR / f"libspot_kernels-{_digest()}.ptxas.log"
+    log = _target().with_suffix(".ptxas.log")
     return [line.strip() for line in
             (log.read_text().splitlines() if log.exists() else ())
             if "warning" in line.lower() or "Performance Loss" in line]

@@ -1,1 +1,3 @@
-"""Launch helpers of the PyTorch port (so far: building a device mesh)."""
+"""Launch layer of the PyTorch port: device meshes and the card's published
+rates (``mesh``), the analytic roofline (``roofline``) and the training
+entry point (``train``, ``python -m repro_torch.launch.train``)."""

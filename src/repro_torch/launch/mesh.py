@@ -1,4 +1,5 @@
-"""Device meshes over the ranks of a process group.
+"""Device meshes over the ranks of a process group, and the card's
+published rates.
 
 A PyTorch process is one rank on one device, so a mesh of ``n`` devices is
 a ``DeviceMesh`` over ``n`` ranks. Building one touches no device state
@@ -10,6 +11,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+# NVIDIA H100 SXM5 80 GB, per card, from NVIDIA's H100 data sheet (the
+# roofline's denominators; none measured here)
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s, no sparsity
+HBM_BW = 3.35e12                # HBM3 bytes/s
+NVLINK_BW = 450e9               # NVLink 4 bytes/s each direction (900 GB/s
+                                # both directions, 18 links)
 
 
 def make_mesh(shape, axes, *, devices=None, device_type: str = "cuda"

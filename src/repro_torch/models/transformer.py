@@ -32,6 +32,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..kernels.decode_attention import flash_decode
@@ -349,22 +351,70 @@ def unembed_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+REMAT_MODES = ("none", "dots", "full")
+
+# the products whose outputs ``remat="dots"`` keeps: unbatched matmuls, the
+# counterpart of jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
+# (a (B, S, D) @ (D, F) product runs as one aten.mm on the flattened rows)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(list(_DOTS))
+
+
+def _period(seg: Segment, cfg: ModelConfig, positions, *, collect_cache: bool,
+            cache_len: int | None):
+    """One repeat of ``seg``'s pattern (the reference's ``period_body``):
+    (x, the period's layer params {pos{i}: ...}) -> (x, each layer's aux
+    loss or None, each layer's cache or None)."""
+    def body(x, layer_params):
+        auxes, caches = [], []
+        for i, kind in enumerate(seg.pattern):
+            x, aux, cache = _apply_block_seq(
+                kind, layer_params[f"pos{i}"], x, cfg, positions,
+                collect_cache=collect_cache, cache_len=cache_len)
+            auxes.append(aux)
+            caches.append(cache)
+        return x, auxes, caches
+    return body
+
+
 def _sequence(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
-              collect_cache: bool, cache_len: int | None):
+              collect_cache: bool, cache_len: int | None,
+              remat: str = "none"):
     """Every layer over the sequence. Returns (x before the final norm,
     the MoE layers' summed aux loss, caches stacked per segment and
-    position, or None)."""
+    position, or None).
+
+    With ``remat`` other than ``"none"`` each period runs under a
+    non-reentrant checkpoint: ``"full"`` keeps only the period's input and
+    recomputes the rest in backward, ``"dots"`` also keeps the outputs of
+    its unbatched products and recomputes everything else, attention
+    included. The backward graph, its ops and their order are those of
+    ``"none"``; only where each saved tensor comes from changes."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
     x = _embed(params, cfg, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: list[dict] = []
     for seg, seg_params in zip(plan_segments(cfg), params["segments"]):
+        body = _period(seg, cfg, positions, collect_cache=collect_cache,
+                       cache_len=cache_len)
         per_pos: dict[str, list] = {f"pos{i}": [] for i in range(len(seg.pattern))}
         for r in range(seg.n_repeats):
-            for i, kind in enumerate(seg.pattern):
-                x, aux, cache = _apply_block_seq(
-                    kind, _select(seg_params[f"pos{i}"], r), x, cfg, positions,
-                    collect_cache=collect_cache, cache_len=cache_len)
+            layer_params = {name: _select(sub, r)
+                            for name, sub in seg_params.items()}
+            if remat == "none":
+                x, auxes, cs = body(x, layer_params)
+            else:
+                kw = {"context_fn": _dots_context} if remat == "dots" else {}
+                # no randomness in a period: no RNG state to replay
+                x, auxes, cs = checkpoint(body, x, layer_params,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False, **kw)
+            for i, (aux, cache) in enumerate(zip(auxes, cs)):
                 if aux is not None:
                     aux_total = aux_total + aux
                 per_pos[f"pos{i}"].append(cache)
@@ -374,7 +424,7 @@ def _sequence(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
 
 
 def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
-            return_hidden: bool = False):
+            remat: str = "none", return_hidden: bool = False):
     """Teacher-forced training forward. inputs: token ids (B,S), or
     embeddings (B,S,D) for archs without token embeddings. Returns
     (logits (B,S,V), aux_loss summed over the MoE layers), or the
@@ -383,9 +433,12 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     Every attention layer runs through the differentiable flash attention,
     so its backward is the dkv and dq kernels on the card; every Mamba and
     RG-LRU layer through its scan kernel, differentiated through the plain
-    version. The cache-building path is ``prefill``."""
+    version. ``remat`` (``"none"``, ``"dots"`` or ``"full"``) recomputes
+    each period in backward (``_sequence``); a recomputed attention layer
+    launches its forward kernel again. The cache-building path is
+    ``prefill``."""
     x, aux, _ = _sequence(params, cfg, inputs, collect_cache=False,
-                          cache_len=None)
+                          cache_len=None, remat=remat)
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     out = x if return_hidden else x @ unembed_weights(params, cfg)
     return out, aux

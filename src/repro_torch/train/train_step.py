@@ -1,4 +1,5 @@
-"""Training step: loss, grads, AdamW update.
+"""Training step: loss, grads, AdamW update; microbatch gradient accumulation
+and activation rematerialization (``models.forward``'s ``remat``).
 
 TrainState is a plain nested dict whose key paths, shapes and dtypes match
 the reference's (``params``, ``opt/{mu,nu,count}``, ``step``, ``rng``,
@@ -25,7 +26,7 @@ from ..checkpoint.sharded import TensorSpec
 from ..device import resolve_device
 from ..models import forward, init_params
 from ..models.config import ModelConfig
-from ..models.transformer import unembed_weights
+from ..models.transformer import REMAT_MODES, unembed_weights
 from ..optim import AdamWConfig, adamw_update, init_opt_state
 
 TrainState = dict  # {"params", "opt", "step", "rng", "data"}
@@ -98,37 +99,125 @@ def batch_to_device(batch: dict, device, cfg: ModelConfig) -> dict:
     return out
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  chunk_tokens: int = 32768) -> torch.Tensor:
+    """Mean cross-entropy over tokens in float32 (the unfused loss, over
+    given logits), computed in token chunks as the reference's ``lax.map``
+    does, so the float32 upcast of the (T, V) logits never exists at once:
+    the number of chunks is the largest divisor of T not above
+    ``T // chunk_tokens``; the chunks' sums are summed in order and divided
+    by T."""
+    B, S, V = logits.shape
+    T = B * S
+    lf = logits.reshape(T, V)
+    yf = labels.reshape(T).to(torch.int64)
+    n_chunks = max(1, T // chunk_tokens)
+    while T % n_chunks != 0:
+        n_chunks -= 1
+
+    def chunk_sum(lc, yc):
+        l32 = lc.to(torch.float32)
+        lse = torch.logsumexp(l32, dim=-1)
+        # the gold logit through a mask, not gather: an elementwise
+        # gradient, and one byte of mask an element where a one-hot
+        # would take eight
+        hit = yc[:, None] == torch.arange(V, device=yc.device)
+        gold = torch.sum(torch.where(hit, l32, 0.0), dim=-1)
+        return torch.sum(lse - gold)
+
+    if n_chunks <= 1:
+        return chunk_sum(lf, yf) / T
+    c = T // n_chunks
+    parts = [chunk_sum(lf[i * c:(i + 1) * c], yf[i * c:(i + 1) * c])
+             for i in range(n_chunks)]
+    return torch.sum(torch.stack(parts)) / T
+
+
 def _aux_weight(cfg: ModelConfig) -> float:
     return cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
 
 
 def loss_and_grads(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
-                   labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
-                                                  torch.Tensor, dict]:
+                   labels: torch.Tensor, *, remat: str = "none",
+                   aux_weight: float | None = None, fused_ce: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict]:
     """The train step's loss, its mean cross-entropy, the MoE aux loss and
     the gradients (a tree like ``params``) of ``ce + aux_w * aux``
-    (``aux_w`` the config's ``aux_loss_weight``, 0 without MoE): the
-    forward with the hidden state, then the fused unembed + cross-entropy,
-    differentiated."""
+    (``aux_w`` is ``aux_weight``, by default the config's
+    ``aux_loss_weight``, 0 without MoE): the forward with the hidden state,
+    then the fused unembed + cross-entropy, differentiated; with
+    ``fused_ce=False`` the forward's logits through ``cross_entropy``.
+    ``remat`` is the forward's."""
+    aux_w = aux_weight if aux_weight is not None else _aux_weight(cfg)
     named = ser.flatten_state(params)
     leaves = {n: p.detach().requires_grad_(True) for n, p in named.items()}
     with torch.enable_grad():
         tree = ser.unflatten_like(params, leaves)
-        hidden, aux = forward(tree, cfg, inputs, return_hidden=True)
-        ce = fused_unembed_xent(hidden, unembed_weights(tree, cfg), labels)
-        loss = ce + _aux_weight(cfg) * aux
+        if fused_ce:
+            hidden, aux = forward(tree, cfg, inputs, remat=remat,
+                                  return_hidden=True)
+            ce = fused_unembed_xent(hidden, unembed_weights(tree, cfg), labels)
+        else:
+            logits, aux = forward(tree, cfg, inputs, remat=remat)
+            ce = cross_entropy(logits, labels)
+        loss = ce + aux_w * aux
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return (loss.detach(), ce.detach(), aux.detach(),
             ser.unflatten_like(params, dict(zip(leaves, grads))))
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
-    """Returns train_step(state, batch) -> (state, metrics)."""
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    remat: str = "none", microbatches: int = 1,
+                    aux_weight: float | None = None, fused_ce: bool = True):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    With ``microbatches`` > 1 the batch's dim 0 is split into that many
+    equal microbatches (``shard_microbatched`` keeps them data-sharded
+    under sharding rules; a no-op without), each microbatch's loss, ce, aux
+    and float32 gradients are summed in microbatch order onto zeros, and
+    the sums are multiplied by ``1 / microbatches``, as the reference's
+    ``lax.scan`` accumulates them."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def single(params, inputs, labels):
+        return loss_and_grads(cfg, params, inputs, labels, remat=remat,
+                              aux_weight=aux_weight, fused_ce=fused_ce)
+
+    def accumulate(params, batch):
+        from ..distributed.sharding import shard_microbatched
+        B = batch["inputs"].shape[0]
+        assert B % microbatches == 0, (B, microbatches)
+        mb = shard_microbatched({
+            k: v.reshape(microbatches, B // microbatches, *v.shape[1:])
+            for k, v in batch.items()})
+        dev = batch["inputs"].device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        loss_s, ce_s, aux_s = zero, zero, zero
+        named = ser.flatten_state(params)
+        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for n, p in named.items()}
+        for i in range(microbatches):
+            loss, ce, aux, grads = single(params, mb["inputs"][i],
+                                          mb["labels"][i])
+            loss_s, ce_s, aux_s = loss_s + loss, ce_s + ce, aux_s + aux
+            for n, g in ser.flatten_state(grads).items():
+                acc[n] = acc[n] + g.to(torch.float32)
+            del grads
+        inv = 1.0 / microbatches
+        return (loss_s * inv, ce_s * inv, aux_s * inv,
+                ser.unflatten_like(params, {n: g * inv
+                                            for n, g in acc.items()}))
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state["params"]
-        loss, ce, aux, grads = loss_and_grads(cfg, params, batch["inputs"],
-                                              batch["labels"])
+        if microbatches > 1:
+            loss, ce, aux, grads = accumulate(params, batch)
+        else:
+            loss, ce, aux, grads = single(params, batch["inputs"],
+                                          batch["labels"])
         new_params, new_opt, opt_metrics = adamw_update(
             grads, state["opt"], params, opt_cfg)
         new_state = {

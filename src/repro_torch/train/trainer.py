@@ -52,6 +52,8 @@ class TrainJob:
     batch: int = 8
     seq_len: int = 64
     seed: int = 0
+    remat: str = "none"                    # models.forward: none | dots | full
+    microbatches: int = 1                  # gradient accumulation steps
 
     def stage_boundaries(self) -> list[int]:
         return [math.ceil(self.total_steps * (i + 1) / self.n_stages)
@@ -95,7 +97,8 @@ class SpotTrainer:
             vocab_size=cfg.vocab_size, batch=job.batch, seq_len=job.seq_len,
             seed=job.seed,
             embed_dim=None if cfg.embed_inputs else cfg.d_model)
-        self._step_fn = make_train_step(cfg, job.opt)
+        self._step_fn = make_train_step(cfg, job.opt, remat=job.remat,
+                                        microbatches=job.microbatches)
 
     # -----------------------------------------------------------------------
 

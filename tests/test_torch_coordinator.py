@@ -295,3 +295,24 @@ class TestUrgentLegs:
         assert coord.stats.termination_failures == 1
         assert coord.last_urgent_legs == {}
         coord.close()
+
+    @pytest.mark.parametrize("fail", [False, True])
+    def test_each_urgent_save_is_recorded(self, tmp_path, fail):
+        """Committed or not, an urgent save leaves its step, its notice
+        budget, its wall seconds, its outcome and its legs."""
+        port = PKGS["port"]
+        tm = (lambda c: c.TimeModel(write_bw=1.0, latency_s=1000.0)) \
+            if fail else None
+        coord, md, clock, store = make(port, tmp_path, transparent(1e9),
+                                       tm=tm)
+        md.simulate_eviction()
+        clock.advance(1.0)
+        coord.on_step_end(3, lambda: state(3))
+        coord.close()
+        [rec] = coord.urgent_saves
+        assert (rec["step"], rec["committed"]) == (3, not fail)
+        assert rec["budget_s"] == pytest.approx(port.core.events
+                                                .DEFAULT_NOTICE_S - 1.0)
+        assert rec["wall_s"] >= 0.0
+        assert rec["legs"] == coord.last_urgent_legs
+        assert bool(rec["legs"]) is not fail

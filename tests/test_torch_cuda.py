@@ -1028,6 +1028,83 @@ def test_moe_train_steps_repeat_bit_for_bit(deterministic):
         assert same_bits(f1[n], f2[n]), n
 
 
+def _small_config(arch):
+    """A small bf16 config of ``arch``'s family on the card: one period of
+    gemma3 at head dim 64, or a deepseek-shaped MoE (a dense prelude and
+    one MoE layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import MoEConfig
+    if arch == "gemma3_1b":
+        return get_config(arch).scaled(n_layers=6, d_model=256, n_heads=4,
+                                       n_kv_heads=1, head_dim=64, d_ff=512,
+                                       vocab_size=1024, window=64)
+    return get_config(arch).scaled(
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+        vocab_size=1024,
+        moe=MoEConfig(n_experts=16, top_k=4, d_expert=128, n_shared=1,
+                      dense_prelude_layers=1, d_ff_prelude=512))
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "deepseek_moe_16b"])
+def test_remat_modes_are_bitwise_equal_on_the_card(deterministic, arch):
+    """remat "dots" and "full" give "none"'s loss, aux and every gradient
+    leaf bit for bit on the card (the recompute relaunches the flash
+    forward, deterministic, on the same inputs), and double the forward
+    kernel's launches: each attention layer's forward runs again in
+    backward. The dkv and dq passes run once a layer in every mode."""
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, loss_and_grads
+    cfg = _small_config(arch)
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    params = init_train_state(cfg, AdamWConfig(), seed=0,
+                              device=deterministic)["params"]
+    g = torch.Generator(device=deterministic).manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (2, 257), generator=g,
+                        device=deterministic, dtype=torch.int32)
+    out = {}
+    for remat in ("none", "dots", "full"):
+        before = dict(_lib.LAUNCHES)
+        out[remat] = loss_and_grads(cfg, params, tok[:, :-1], tok[:, 1:],
+                                    remat=remat)
+        torch.cuda.synchronize()
+        fwd = _lib.LAUNCHES["flash_attention_fwd"] - before["flash_attention_fwd"]
+        assert fwd == n_attn * (1 if remat == "none" else 2), (remat, fwd)
+        for k in ("flash_attention_dkv", "flash_attention_dq"):
+            assert _lib.LAUNCHES[k] - before[k] == n_attn, (remat, k)
+    want = out["none"]
+    for remat in ("dots", "full"):
+        for i in range(3):
+            assert same_bits(out[remat][i], want[i]), (remat, i)
+        gw = ser.flatten_state(want[3])
+        for n, t in ser.flatten_state(out[remat][3]).items():
+            assert same_bits(t, gw[n]), (remat, n)
+    if cfg.moe is not None:
+        assert float(want[2]) > 0
+
+
+def test_two_microbatches_on_the_card_match_one(deterministic):
+    """make_train_step on two microbatches against one batch, bf16 on the
+    card: the loss within 1e-3 and the gradient norm within 1e-2,
+    relative (the same sums over other GEMM shapes), and the flash kernels
+    launched once a layer a microbatch."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = _small_config("gemma3_1b")
+    opt = AdamWConfig(total_steps=4, warmup_steps=1)
+    state = init_train_state(cfg, opt, seed=0, device=deterministic)
+    g = torch.Generator(device=deterministic).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (4, 257), generator=g,
+                        device=deterministic, dtype=torch.int32)
+    b = {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
+    _, one = make_train_step(cfg, opt)(state, b)
+    before = _lib.LAUNCHES["flash_attention_dq"]
+    _, two = make_train_step(cfg, opt, remat="full", microbatches=2)(state, b)
+    assert _lib.LAUNCHES["flash_attention_dq"] - before == 2 * 6
+    for k, tol in (("loss", 1e-3), ("grad_norm", 1e-2)):
+        assert abs(float(two[k]) - float(one[k])) <= tol * abs(float(one[k])), k
+
+
 # -- the urgent save on the card: device chunk digests, legs ----------------
 
 DIGEST_GPU_CASES = [

@@ -243,3 +243,48 @@ def test_periodic_chunk_loop_holds_in_an_urgent_window(tmp_path):
         assert not released.wait(0.2)
     assert released.wait(5)
     t.join(5)
+
+
+@pytest.mark.parametrize("policy,notice_first,want", [
+    ("transparent", False, [[1234]]),
+    ("transparent", True, []),
+    ("off", False, [])])
+def test_first_step_of_an_instance_reserves_its_urgent_buffers(
+        tmp_path, monkeypatch, policy, notice_first, want):
+    """An instance may be evicted before its first periodic save: the first
+    step after ``attach_instance`` with no notice pending reserves the
+    urgent save's pinned buffers (``STAGING.reserve``), once an instance;
+    not while a notice is being handled (the save takes what it needs
+    then), and not under a policy that takes no urgent saves."""
+    from repro_torch.core import coordinator as coord_mod
+    from repro_torch.core import (CheckpointPolicy, Signal,
+                                  SimulatedMetadataService, SpotOnCoordinator,
+                                  VirtualClock)
+    calls = []
+
+    class FakeStaging:
+        def reserve(self, sizes):
+            calls.append(list(sizes))
+
+    monkeypatch.setattr(coord_mod, "STAGING", FakeStaging())
+    monkeypatch.setattr(coord_mod, "urgent_staging_sizes",
+                        lambda state, quantize_moments: [1234])
+    monkeypatch.setattr(SpotOnCoordinator, "_save_termination",
+                        lambda self, step, state, deadline: True)
+    clock = VirtualClock()
+    pol = (CheckpointPolicy.transparent(1e9) if policy == "transparent"
+           else CheckpointPolicy.off())
+    coord = SpotOnCoordinator(CheckpointStore(str(tmp_path)), pol, clock)
+    meta = SimulatedMetadataService(clock, "vm-0")
+    if notice_first:
+        meta.schedule_preempt()
+    coord.attach_instance(meta, "vm-0")
+    state = {"w": torch.zeros(3)}
+    if notice_first:     # the trainer stops stepping on a notice
+        assert coord.on_step_end(1, lambda: state) is Signal.PREEMPTING
+    else:
+        for step in (1, 2, 3):
+            assert coord.on_step_end(step, lambda: state) is Signal.CONTINUE
+            clock.advance(2.0)
+    coord.close()
+    assert calls == want
