@@ -6,12 +6,13 @@ each against its plain PyTorch version at the main path's shapes (the
 checkpoint kernels and the RG-LRU scan bit for bit, the attention kernels
 and the selective scan in float32 and bfloat16 within stated tolerances)
 and times both, then drives the Spot-on loop through the entry points a
-user calls, at phi3-mini's published width cut to a few layers and at
+user calls, at phi3-mini's published width cut to one layer and at
 gemma3-1b's cut to one period, trains gemma3-1b at its full published
-config, serves gemma3-1b, recurrentgemma-2b, phi3-mini, falcon-mamba-7b,
-deepseek-moe-16b, minitron-8b and musicgen-medium at their full published
-configs, and runs the spot loops on deepseek-moe-16b's width, all with
-seeded weights:
+config, serves gemma3-1b, recurrentgemma-2b and musicgen-medium at their
+full published configs and phi3-mini, falcon-mamba-7b, deepseek-moe-16b
+and minitron-8b at their published widths cut to half their depth
+(``SERVE_DEPTH``: the run's time limit), and runs the spot loops on
+deepseek-moe-16b's width, all with seeded weights:
 
   kernels         the chunk digest (an urgent save's SHA-1 addresses and
                   CRC-32s) vs hashlib and zlib; fingerprint (both
@@ -53,6 +54,14 @@ seeded weights:
                   alike) and one on two microbatches (within a stated
                   tolerance of one); a float32 one-period copy's
                   gradients on the card against the same step on the host
+  dryrun          launch/dryrun.py's trace of train_gemma3's step (fake
+                  CUDA tensors, a (1, 1) mesh) against the same step run
+                  once on the card under the same op analysis: FLOPs equal
+                  exactly, peak allocated memory within 10% of the
+                  trace's live bytes, the counted TFLOP/s; meanwhile, in a
+                  process of its own, python -m repro_torch.launch.dryrun
+                  on gemma3-1b's decode_32k cell on the production mesh
+                  (256 ranks of the fake process group), status ok
   spot_loop_gemma3  the spot_loop contract at gemma3-1b's full width cut
                   to one period (6 layers), sequences of 1024
   launch_train    python -m repro_torch.launch.train at gemma3-1b's full
@@ -71,7 +80,8 @@ seeded weights:
                   logits; a mid-generation save and restore that must
                   continue to bitwise the same tokens
   serve_deepseek_moe, serve_minitron
-                  the same for the full MoE (16.4 B, routed prefill,
+                  the same for the MoE (16.4 B at full depth, 14 of its
+                  28 layers here; routed prefill,
                   dropless decode; its float32 copy cut to the prelude and
                   two MoE layers, batch 1, 512 + 16 tokens, at a capacity
                   no pair overflows, each cut printed under "reduced") and
@@ -128,7 +138,7 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
 TF32X3 = "3xTF32 (mma.sync, tensor cores)"   # the float32 kernels' route
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 CHUNK = 1 << 20
-LAYERS = 2                     # phi3-mini at full width, cut in depth
+LAYERS = 1                     # phi3-mini at full width, cut in depth
 STEPS = 8                      # train steps of each spot loop
 SERVE_B, PROMPT, NEW, CACHE_LEN = 4, 1984, 64, 2048   # serving phases
 SAVE_AT = 32                   # new tokens before the mid-generation save
@@ -139,6 +149,10 @@ TRAIN_STEPS = 8
 LOOP_LAYERS, LOOP_S = 6, 1024  # spot_loop_gemma3: one period, its sequences
 MOE_LOOP_LAYERS = 2            # spot_loop_moe: deepseek's prelude + 1 MoE layer
 EMB_PROMPT, EMB_NEW = 512, 16  # embeds phase: prompt frames, new tokens
+# serving phases cut in depth to fit the run in its time limit (full
+# widths; each cut printed under "reduced")
+SERVE_DEPTH = {"phi3_mini_3p8b": 16, "falcon_mamba_7b": 32,
+               "deepseek_moe_16b": 14, "minitron_8b": 16}
 MOE_TF_CUT = {"n_layers": 3, "batch": 1, "prompt": 512, "new_tokens": 16,
               "dropless": True}   # deepseek's float32 teacher-forcing copy
 GRAD_TOL = 2e-4                # backward kernels vs plain in float32, of
@@ -1845,6 +1859,117 @@ def phase_train_gemma3(dev, card, launches) -> dict:
     return res
 
 
+DRYRUN_CELL = {"seq_len": TRAIN_S, "global_batch": TRAIN_B, "kind": "train"}
+DRYRUN_KNOBS = {"fsdp": False, "remat": "none", "microbatches": 1,
+                "seq_parallel": False, "fused_ce": True, "pure_fsdp": False,
+                "factored_opt": False}   # train_gemma3's step
+DRYRUN_MEM_TOL = 0.10          # measured peak vs the trace's, relative
+DRYRUN_CLI_TIMEOUT_S = 240
+
+
+def phase_dryrun(dev, card, launches, workdir) -> dict:
+    """The dry run against the card. (a) ``launch/dryrun.py``'s trace of
+    train_gemma3's step (gemma3-1b, full config, 2 x 2048, remat none, one
+    microbatch) on a (1, 1) mesh with fake CUDA tensors; (b) the same step
+    run once for real on the card inside the same op analysis: the FLOPs
+    must equal the trace's exactly and the measured peak of allocated
+    memory (less what was allocated before) must be within
+    ``DRYRUN_MEM_TOL`` of the trace's ``live_bytes``; (c) ``python -m
+    repro_torch.launch.dryrun`` on gemma3-1b's decode_32k cell on the
+    production mesh (256 ranks of the fake process group), status ok."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg = get_config("gemma3_1b")
+    SHAPES["chip_smoke_train"] = DRYRUN_CELL
+    try:
+        return _dryrun(cfg, dev, card, launches, workdir)
+    finally:
+        del SHAPES["chip_smoke_train"]
+
+
+def _dryrun(cfg, dev, card, launches, workdir) -> dict:
+    # (c), the CLI on the production mesh, runs in a process of its own
+    # while (a) and (b) run here
+    cli_out = workdir / "dryrun"
+    cli_out.mkdir(parents=True, exist_ok=True)
+    t_cli = time.perf_counter()
+    with open(cli_out / "cli.err", "w") as err:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "gemma3-1b", "--shape", "decode_32k", "--mesh", "single",
+             "--out", str(cli_out), "--tag", "chip_smoke"],
+            stdout=subprocess.DEVNULL, stderr=err,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            out = _dryrun_step(cfg, card, launches)
+            cli.wait(timeout=DRYRUN_CLI_TIMEOUT_S)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+    cli_s = time.perf_counter() - t_cli
+    need(cli.returncode == 0, f"dryrun CLI exited {cli.returncode}: "
+                              f"{(cli_out / 'cli.err').read_text()[-2000:]}")
+    cell = json.loads((cli_out / "chip_smoke" / "single" /
+                       "gemma3_1b__decode_32k.json").read_text())
+    need(cell["status"] == "ok", f"dryrun CLI: status {cell['status']}")
+    print(json.dumps({"dryrun_cli": cell, "wall_s": cli_s}), flush=True)
+    out["cli"] = {"wall_s": cli_s, "trace_s": cell["compile_s"],
+                  "cell": cell}
+    return out
+
+
+def _dryrun_step(cfg, card, launches) -> dict:
+    """(a) and (b) of ``phase_dryrun``."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import model_flops
+    mesh = make_mesh((1, 1), ("data", "model"))
+    trace = dryrun.trace_cell(cfg, "chip_smoke_train", mesh, DRYRUN_KNOBS)
+    need(trace["trace_device"] == "cuda:0" or trace["trace_device"] == "cuda",
+         f"dryrun: traced on {trace['trace_device']}, not the card")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    real = dryrun.trace_cell(cfg, "chip_smoke_train", mesh, DRYRUN_KNOBS,
+                             fake=False, seed=5)
+    launches["dryrun"] = counted = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    for k in ("flash_attention_fwd", "flash_attention_dkv",
+              "flash_attention_dq"):
+        need(counted[k] == n_attn, f"dryrun: {counted[k]} {k} launches in "
+                                   f"the real step, expected {n_attn}")
+    need(real["flops"] == trace["flops"],
+         f"dryrun: the real step counted {real['flops']} FLOPs, the trace "
+         f"{trace['flops']}")
+    predicted = trace["memory"]["live_bytes"]
+    mem_err = abs(peak - predicted) / predicted
+    need(mem_err <= DRYRUN_MEM_TOL,
+         f"dryrun: peak allocated {peak} B against the trace's {predicted} B "
+         f"({mem_err:.3f} off, limit {DRYRUN_MEM_TOL})")
+    mf = model_flops(cfg, kind="train", batch=TRAIN_B, seq_len=TRAIN_S)
+    out = {"card": card, "cell": DRYRUN_CELL, "knobs": DRYRUN_KNOBS,
+           "trace": {k: trace[k] for k in ("flops", "bytes", "memory",
+                                           "trace_s", "trace_device")},
+           "real": {k: real[k] for k in ("flops", "bytes", "memory",
+                                         "step_s", "trace_s")},
+           "flops_equal": real["flops"] == trace["flops"],
+           "peak_allocated_bytes": peak, "predicted_live_bytes": predicted,
+           "peak_rel_err": mem_err, "mem_tol": DRYRUN_MEM_TOL,
+           "counted_tflops_per_s": trace["flops"] / real["step_s"] / 1e12,
+           "model_flops": mf, "model_over_counted": mf / trace["flops"],
+           "launches": counted}
+    print(f"dryrun: step {real['step_s']:.3f} s, "
+          f"{out['counted_tflops_per_s']:.1f} TFLOP/s counted, model/counted "
+          f"{out['model_over_counted']:.4f}, peak {peak / 2**30:.2f} GiB vs "
+          f"predicted {predicted / 2**30:.2f} GiB ({mem_err:.3%})", flush=True)
+    return out
+
+
 def _remat_steps(cfg, opt, state, b, n_attn, launches) -> dict:
     """From one state and batch: a train step with each remat mode and one
     with two microbatches (each after a warm-up step), its wall time, peak
@@ -2259,10 +2384,11 @@ def _teacher_forcing(what, host, template, cfg32, prompt, n_new, dev,
 
 
 def phase_serve(arch, dev, workdir, card, launches, *, tf_cut=None) -> dict:
-    """Serve ``arch`` at its full published config. ``tf_cut`` (a dict of
-    n_layers, batch, prompt, new_tokens and dropless) cuts the float32 copy
-    that decode is held against teacher forcing on; each cut is printed
-    under ``reduced``."""
+    """Serve ``arch`` at its full published widths, at its full depth or
+    cut to ``SERVE_DEPTH[arch]`` layers (printed under ``reduced``).
+    ``tf_cut`` (a dict of n_layers, batch, prompt, new_tokens and dropless)
+    cuts the float32 copy that decode is held against teacher forcing on;
+    each cut is printed under the teacher forcing's ``reduced``."""
     import dataclasses
 
     import torch
@@ -2276,6 +2402,10 @@ def phase_serve(arch, dev, workdir, card, launches, *, tf_cut=None) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(arch)
+    depth = {}
+    if arch in SERVE_DEPTH:
+        depth["n_layers"] = f"{cfg.n_layers} -> {SERVE_DEPTH[arch]}"
+        cfg = cfg.scaled(n_layers=SERVE_DEPTH[arch])
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("global", "local") for k in kinds)
     n_rec = sum(k == "rglru" for k in kinds)
@@ -2299,6 +2429,7 @@ def phase_serve(arch, dev, workdir, card, launches, *, tf_cut=None) -> dict:
         params, cfg, prefill_fn, step_fn, prompt, keep_at=SAVE_AT)
     launches[f"serve_{arch}"] = counted = dict(_lib.LAUNCHES)
     res = {"card": card, "config": _config_summary(cfg, params),
+           "reduced": depth,
            "batch": SERVE_B, "prompt": PROMPT, "new_tokens": NEW,
            "cache_len": CACHE_LEN, "prefill_s": prefill_s,
            "prefill_tokens_per_s": SERVE_B * PROMPT / prefill_s,
@@ -2932,6 +3063,7 @@ def main() -> int:
             "pod_restore": lambda: phase_pod_restore(cfg, dev, workdir,
                                                      launches),
             "train_gemma3": lambda: phase_train_gemma3(dev, card, launches),
+            "dryrun": lambda: phase_dryrun(dev, card, launches, workdir),
             "spot_loop_gemma3": lambda: phase_spot_loop(
                 get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
                 workdir / "gemma3", STEPS, launches, name="spot_loop_gemma3",

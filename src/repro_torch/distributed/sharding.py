@@ -20,7 +20,8 @@ local shard.
 * **Activation specs** — ``shard_act(x, name)`` at the canonical cut points
   (residual stream, attention heads, logits). Rules are installed with
   ``use_sharding_rules(...)``; without rules, or for a plain tensor, it is a
-  no-op; a ``DTensor`` is redistributed to the spec.
+  no-op; a ``DTensor`` is redistributed to the spec, and so is its
+  gradient.
 """
 
 from __future__ import annotations
@@ -247,8 +248,25 @@ def _act_spec(shape, name: str, rules: ShardingRules):
     return None
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too: the
+    transpose of JAX's ``with_sharding_constraint`` constrains the
+    cotangent to the same sharding. (A plain redistribute lets a partial
+    gradient flow on unreduced, and DTensor then gathers weights to meet
+    it.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements_):
+        ctx.mesh, ctx.placements = mesh, placements_
+        return x.redistribute(mesh, placements_)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
 def _constrain(x, spec: Spec, rules: ShardingRules):
-    return x.redistribute(rules.mesh, placements(spec, rules.mesh))
+    return _Constrain.apply(x, rules.mesh, placements(spec, rules.mesh))
 
 
 def shard_act(x, name: str):

@@ -15,7 +15,8 @@ ring cache of size W whose newest token sits at position ``pos`` is read
 with ``valid_len = min(pos + 1, W)``: every filled slot holds a position
 inside the window, and softmax does not depend on slot order. Inference
 only: an input that requires grad raises. A CUDA tensor always launches
-the kernels or raises; there is no fallback.
+the kernels or raises; there is no fallback. The call is the torch op
+``repro_torch::flash_decode`` (``kernels/_ops.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import math
 
 import torch
 
-from .. import _lib
+from .. import _lib, _local, _ops
 from .ref import (LOG2E, decode_attention_ref, decode_merge_ref,
                   decode_partials_ref)
 
@@ -53,34 +54,68 @@ def decode_splits(B: int, KV: int, hd: int, valid_len: int) -> tuple[int, int]:
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  valid_len: int) -> torch.Tensor:
     """q: (B,1,H,hd) or (B,H,hd); k,v: (B,S,KV,hd); 1 <= valid_len <= S.
-    Returns the same rank as q."""
+    Returns the same rank as q. On ``DTensor``s the op runs on each rank's
+    local shards (``_local.attention``; a sequence-sharded cache is
+    gathered first)."""
     _lib.refuse_grad("flash_decode", q, k, v)
+    valid_len = int(valid_len)
+    if _local.any_dtensor(q, k, v):
+        return _local.attention(lambda q_, k_, v_: flash_decode(q_, k_, v_,
+                                                                valid_len),
+                                q, k, v)
     squeeze = q.ndim == 4
-    if squeeze:
-        q = q[:, 0]
+    o = DECODE(q[:, 0] if squeeze else q, k, v, valid_len)
+    return o[:, None] if squeeze else o
+
+
+def _check(q, k, v, valid_len) -> None:
     B, H, hd = q.shape
     _, S, KV, _ = k.shape
     if v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    valid_len = int(valid_len)
     if not 1 <= valid_len <= S:
         raise ValueError(f"flash_decode: valid_len {valid_len} outside [1, {S}]")
+
+
+def _decode(q, k, v, valid_len):
+    """The op on either device: q (B,H,hd) -> o (B,H,hd); the split and
+    merge kernels for CUDA tensors, the plain version for CPU ones."""
+    _check(q, k, v, valid_len)
     if q.device.type == "cpu":
-        o = decode_attention_ref(q, k, v, valid_len)
-    else:
-        q, k, v = _operands(q, k, v)
-        splits, per = decode_splits(B, KV, hd, valid_len)
-        # the partials and the output in one allocation: under
-        # deterministic algorithms each allocation is filled first
-        n_ws = B * H * splits * (hd + 2)
-        buf = torch.empty(n_ws * 4 + B * H * hd * q.element_size(),
-                          dtype=torch.uint8, device=q.device)
-        ws = buf[:n_ws * 4].view(torch.float32).view(B, H, splits, hd + 2)
-        o = buf[n_ws * 4:].view(q.dtype).view(B, H, hd)
-        _split(q, k, v, valid_len, per, ws)
-        _merge(ws, o)
-    return o[:, None] if squeeze else o
+        return decode_attention_ref(q, k, v, valid_len)
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    q, k, v = _operands(q, k, v)
+    splits, per = decode_splits(B, KV, hd, valid_len)
+    # the partials and the output in one allocation: under
+    # deterministic algorithms each allocation is filled first
+    n_ws = B * H * splits * (hd + 2)
+    buf = torch.empty(n_ws * 4 + B * H * hd * q.element_size(),
+                      dtype=torch.uint8, device=q.device)
+    ws = buf[:n_ws * 4].view(torch.float32).view(B, H, splits, hd + 2)
+    o = buf[n_ws * 4:].view(q.dtype).view(B, H, hd)
+    _split(q, k, v, valid_len, per, ws)
+    _merge(ws, o)
+    return o
+
+
+def _decode_fake(q, k, v, valid_len):
+    _check(q, k, v, valid_len)
+    return q.new_empty(q.shape)
+
+
+def _decode_flops(q_shape, k_shape, v_shape, valid_len, *, out_shape=None,
+                  **_kw) -> int:
+    """4 FLOPs a head dimension for each (query head, valid key) pair: the
+    q.k score and the p.v sum."""
+    B, H, hd = q_shape
+    return 4 * B * H * hd * int(valid_len)
+
+
+DECODE = _ops.define(
+    "flash_decode", "(Tensor q, Tensor k, Tensor v, int valid_len) -> Tensor",
+    impl=_decode, plain=_decode, fake=_decode_fake, flops=_decode_flops)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,13 @@ k and v to the block and lse with zeros; a padded row's dO is zero, so it
 adds exactly nothing to any gradient. The padding runs on either device, so
 the CPU tests reach it.
 
-``flash_attention`` is differentiable: an ``autograd.Function`` that keeps
-(q, k, v, o, lse), the reference's residency policy, and whose backward is
-the dkv and dq kernels. ``flash_attention_fwd`` is the raw forward kernel
-and, like a raw ``pallas_call``, refuses inputs that require grad. A CUDA
-tensor always launches the kernels or raises; there is no fallback.
+The forward and the backward are torch ops (``kernels/_ops.py``):
+``repro_torch::flash_attention_fwd``, differentiable through
+``repro_torch::flash_attention_bwd``, keeping (q, k, v, o, lse), the
+reference's residency policy. ``flash_attention`` is the differentiable
+entry point; ``flash_attention_fwd`` is the raw forward and, like a raw
+``pallas_call``, refuses inputs that require grad. A CUDA tensor always
+launches the kernels or raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .. import _lib
+from .. import _lib, _local, _ops
 from .ref import (attention_bwd_ref, attention_dkv_ref, attention_dq_ref,
                   attention_ref)
 
@@ -55,12 +57,9 @@ def _check_shapes(q, k, v) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd). Returns (o (B,Sq,H,hd),
-    lse (B,H,Sq) float32)."""
-    _lib.refuse_grad("flash_attention_fwd", q, k, v)
+def _fwd(q, k, v, causal, window):
+    """The forward op on either device: the kernel for CUDA tensors, the
+    plain version for CPU ones, on operands padded to the block."""
     _check_shapes(q, k, v)
     Sq, Skv = q.shape[1], k.shape[1]
     Sq_p, Skv_p = _padded_lengths(Sq, Skv, causal)
@@ -72,12 +71,30 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o[:, :Sq], lse[..., :Sq]
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
-                        window: int = 0
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradients (dq, dk, dv) of ``flash_attention`` from the forward's
-    ``o`` and ``lse`` and the output gradient ``do``; dk and dv are summed
-    over each KV head's group of query heads, in k's and v's dtypes."""
+def _fwd_fake(q, k, v, causal, window):
+    _check_shapes(q, k, v)
+    _padded_lengths(q.shape[1], k.shape[1], causal)
+    B, Sq, H, _hd = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def _pair_flops(per_pair: int, q_shape, k_shape, causal, window) -> int:
+    """``per_pair`` FLOPs a head dimension for each unmasked (q, k) pair of
+    each batch row and query head (the forward 4: q.k and p.v; dkv 8; dq
+    6)."""
+    B, Sq, H, hd = q_shape
+    return per_pair * B * H * hd * _ops.causal_pairs(int(Sq), int(k_shape[1]),
+                                                     bool(causal), int(window))
+
+
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, *, out_shape=None,
+               **_kw) -> int:
+    return _pair_flops(4, q_shape, k_shape, causal, window)
+
+
+def _bwd(q, k, v, o, lse, do, causal, window):
+    """The backward op on either device: dkv and dq kernels for CUDA
+    tensors, the plain backward for CPU ones."""
     _check_shapes(q, k, v)
     Sq, Skv = q.shape[1], k.shape[1]
     Sq_p, Skv_p = _padded_lengths(Sq, Skv, causal)
@@ -102,30 +119,75 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     return dq[:, :Sq], dk[:, :Skv], dv[:, :Skv]
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward kernel; backward through the dkv and dq kernels. Saves
-    (q, k, v, o, lse), as the reference's custom_vjp does."""
+def _bwd_fake(q, k, v, o, lse, do, causal, window):
+    _check_shapes(q, k, v)
+    _padded_lengths(q.shape[1], k.shape[1], causal)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_attention_fwd(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, window, *, out_shape=None, **_kw) -> int:
+    return _pair_flops(8 + 6, q_shape, k_shape, causal, window)
+
+
+FWD = _ops.define(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> (Tensor, Tensor)",
+    impl=_fwd, plain=_fwd, fake=_fwd_fake, flops=_fwd_flops)
+BWD = _ops.define(
+    "flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
+    "bool causal, int window) -> (Tensor, Tensor, Tensor)",
+    impl=_bwd, plain=_bwd, fake=_bwd_fake, flops=_bwd_flops)
+
+
+def _setup(ctx, inputs, output):
+    """Keeps (q, k, v, o, lse), as the reference's custom_vjp does."""
+    q, k, v, causal, window = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.window = causal, window
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = BWD(q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.window)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd(f"{_ops.NAMESPACE}::flash_attention_fwd",
+                                _backward, setup_context=_setup, lib=_ops.LIB)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd). Returns (o (B,Sq,H,hd),
+    lse (B,H,Sq) float32)."""
+    _lib.refuse_grad("flash_attention_fwd", q, k, v)
+    return FWD(q, k, v, bool(causal), int(window))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention`` from the forward's
+    ``o`` and ``lse`` and the output gradient ``do``; dk and dv are summed
+    over each KV head's group of query heads, in k's and v's dtypes."""
+    return BWD(q, k, v, o, lse, do, bool(causal), int(window))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Differentiable flash attention: the output of ``flash_attention_fwd``,
-    with gradients through ``flash_attention_bwd``."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    with gradients through ``flash_attention_bwd``. On ``DTensor``s the op
+    runs on each rank's local shards (``_local.attention``)."""
+    if _local.any_dtensor(q, k, v):
+        return _local.attention(
+            lambda q_, k_, v_: FWD(q_, k_, v_, bool(causal), int(window))[0],
+            q, k, v)
+    return FWD(q, k, v, bool(causal), int(window))[0]
 
 
 # ---------------------------------------------------------------------------

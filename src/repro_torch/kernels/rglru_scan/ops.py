@@ -1,12 +1,12 @@
 """RG-LRU scan: the CUDA kernel for CUDA tensors, the plain version for CPU
 tensors.
 
-``rglru_scan`` is the raw kernel (h and the last state) and refuses inputs
-that require grad. ``lru_scan`` is differentiable: an ``autograd.Function``
-whose forward is ``rglru_scan`` and whose backward differentiates the plain
-version, as the reference's ``custom_vjp`` does (``kernels/rglru_scan/
-ops.py``). A CUDA tensor always launches the kernel or raises; there is no
-fallback."""
+The scan is the torch op ``repro_torch::rglru_scan`` (``kernels/_ops.py``).
+``rglru_scan`` is the raw entry point (h and the last state) and refuses
+inputs that require grad. ``lru_scan`` is differentiable: the op's backward
+differentiates the plain version, as the reference's ``custom_vjp`` does
+(``kernels/rglru_scan/ops.py``). A CUDA tensor always launches the kernel
+or raises; there is no fallback."""
 
 from __future__ import annotations
 
@@ -14,18 +14,20 @@ import ctypes
 
 import torch
 
-from .. import _lib
+from .. import _lib, _local, _ops
 from .ref import rglru_scan_ref
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """a, b: (B,S,W), same dtype -> (h (B,S,W) in a's dtype,
-    h_last (B,W) float32)."""
-    _lib.refuse_grad("rglru_scan", a, b)
+def _check(a, b) -> None:
     if a.ndim != 3 or a.shape != b.shape or a.dtype != b.dtype:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} {a.dtype} and "
                          f"b {tuple(b.shape)} {b.dtype} must match, 3-d")
+
+
+def _scan(a, b):
+    """The op on either device: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    _check(a, b)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     a, b = a.contiguous(), b.contiguous()
@@ -44,6 +46,34 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor
     return h, h_last
 
 
+def _scan_fake(a, b):
+    _check(a, b)
+    return (a.new_empty(a.shape),
+            a.new_empty((a.shape[0], a.shape[2]), dtype=torch.float32))
+
+
+def _scan_flops(a_shape, b_shape, *, out_shape=None, **_kw) -> int:
+    """2 FLOPs (a multiply and an add) for each step and channel of each
+    batch row."""
+    Bb, S, W = a_shape
+    return 2 * Bb * S * W
+
+
+SCAN = _ops.define("rglru_scan", "(Tensor a, Tensor b) -> (Tensor, Tensor)",
+                   impl=_scan, plain=_scan, fake=_scan_fake,
+                   flops=_scan_flops)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """a, b: (B,S,W), same dtype -> (h (B,S,W) in a's dtype,
+    h_last (B,W) float32)."""
+    _lib.refuse_grad("rglru_scan", a, b)
+    if _local.any_dtensor(a, b):
+        return _local.lru_scan(SCAN, a, b)
+    return SCAN(a, b)
+
+
 def scan_layout(B: int, W: int, dtype: torch.dtype) -> dict:
     """The kernel's launch layout at (B, ., W): channels a CTA (one thread
     each), steps a staged chunk, ring slots, CTAs, dynamic shared memory
@@ -55,25 +85,28 @@ def scan_layout(B: int, W: int, dtype: torch.dtype) -> dict:
                      "smem_bytes", "ctas_per_sm"), out))
 
 
-class _LruScan(torch.autograd.Function):
-    """Forward through ``rglru_scan``; backward through autograd of the plain
-    version on the saved inputs."""
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return rglru_scan(a, b)[0]
 
-    @staticmethod
-    def backward(ctx, dh):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            h = rglru_scan_ref(*inputs)[0]
-        grads = torch.autograd.grad(h, inputs, dh)
-        return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad))
+def _backward(ctx, dh, _dh_last):
+    """Autograd of the plain version on the saved inputs."""
+    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        h = rglru_scan_ref(*inputs)[0]
+    grads = torch.autograd.grad(h, inputs, dh)
+    return tuple(g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad))
+
+
+torch.library.register_autograd(f"{_ops.NAMESPACE}::rglru_scan", _backward,
+                                setup_context=_setup, lib=_ops.LIB)
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Differentiable RG-LRU scan: h (B,S,W) in a's dtype."""
-    return _LruScan.apply(a, b)
+    """Differentiable RG-LRU scan: h (B,S,W) in a's dtype; forward through
+    ``rglru_scan``'s op, backward through autograd of the plain version on
+    the saved inputs."""
+    if _local.any_dtensor(a, b):
+        return _local.lru_scan(SCAN, a, b)[0]
+    return SCAN(a, b)[0]

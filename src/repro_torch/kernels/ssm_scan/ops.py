@@ -1,12 +1,12 @@
 """Selective scan: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors.
 
-``ssm_scan`` is the raw kernel (y and the last state) and refuses inputs
-that require grad. ``selective_scan`` is differentiable: an
-``autograd.Function`` whose forward is ``ssm_scan`` and whose backward
-differentiates the plain version, as the reference's ``custom_vjp`` does
-(``kernels/ssm_scan/ops.py``). A CUDA tensor always launches the kernel or
-raises; there is no fallback.
+The scan is the torch op ``repro_torch::ssm_scan`` (``kernels/_ops.py``).
+``ssm_scan`` is the raw entry point (y and the last state) and refuses
+inputs that require grad. ``selective_scan`` is differentiable: the op's
+backward differentiates the plain version, as the reference's
+``custom_vjp`` does (``kernels/ssm_scan/ops.py``). A CUDA tensor always
+launches the kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,8 +15,53 @@ import ctypes
 
 import torch
 
-from .. import _lib
+from .. import _lib, _local, _ops
 from .ref import ssm_scan_ref
+
+
+def _check(u, delta, A, B, C, D) -> None:
+    Bb, S, DI = u.shape
+    N = A.shape[1]
+    if (delta.shape != u.shape or delta.dtype != u.dtype
+            or tuple(A.shape) != (DI, N) or tuple(D.shape) != (DI,)
+            or tuple(B.shape) != (Bb, S, N) or B.shape != C.shape):
+        raise ValueError(
+            f"ssm_scan: shapes u {tuple(u.shape)} {u.dtype}, delta "
+            f"{tuple(delta.shape)} {delta.dtype}, A {tuple(A.shape)}, B "
+            f"{tuple(B.shape)}, C {tuple(C.shape)}, D {tuple(D.shape)} do "
+            "not fit")
+
+
+def _scan(u, delta, A, B, C, D):
+    """The op on either device: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    _check(u, delta, A, B, C, D)
+    if u.device.type == "cpu":
+        return ssm_scan_ref(u, delta, A, B, C, D)
+    return _launch(u, delta, A, B, C, D)
+
+
+def _scan_fake(u, delta, A, B, C, D):
+    _check(u, delta, A, B, C, D)
+    return (u.new_empty(u.shape),
+            u.new_empty((u.shape[0], u.shape[2], A.shape[1]),
+                        dtype=torch.float32))
+
+
+def _scan_flops(u_shape, delta_shape, A_shape, B_shape, C_shape, D_shape, *,
+                out_shape=None, **_kw) -> int:
+    """7 FLOPs for each (step, channel, state) of each batch row: the
+    exponential and its argument's product, the state's product and fused
+    multiply-add, and y's fused multiply-add."""
+    Bb, S, DI = u_shape
+    return 7 * Bb * S * DI * A_shape[1]
+
+
+SCAN = _ops.define(
+    "ssm_scan",
+    "(Tensor u, Tensor delta, Tensor A, Tensor B, Tensor C, Tensor D) "
+    "-> (Tensor, Tensor)",
+    impl=_scan, plain=_scan, fake=_scan_fake, flops=_scan_flops)
 
 
 def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -28,19 +73,9 @@ def ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     other to float32 first). Returns (y (B,S,DI) in u's dtype, h_last
     (B,DI,N) float32)."""
     _lib.refuse_grad("ssm_scan", u, delta, A, B, C, D)
-    Bb, S, DI = u.shape
-    N = A.shape[1]
-    if (delta.shape != u.shape or delta.dtype != u.dtype
-            or tuple(A.shape) != (DI, N) or tuple(D.shape) != (DI,)
-            or tuple(B.shape) != (Bb, S, N) or B.shape != C.shape):
-        raise ValueError(
-            f"ssm_scan: shapes u {tuple(u.shape)} {u.dtype}, delta "
-            f"{tuple(delta.shape)} {delta.dtype}, A {tuple(A.shape)}, B "
-            f"{tuple(B.shape)}, C {tuple(C.shape)}, D {tuple(D.shape)} do "
-            "not fit")
-    if u.device.type == "cpu":
-        return ssm_scan_ref(u, delta, A, B, C, D)
-    return _launch(u, delta, A, B, C, D)
+    if _local.any_dtensor(u, delta, A, B, C, D):
+        return _local.selective_scan(SCAN, u, delta, A, B, C, D)
+    return SCAN(u, delta, A, B, C, D)
 
 
 def _row_stride(t: torch.Tensor) -> int | None:
@@ -105,25 +140,28 @@ def scan_layout(DI: int, dtype: torch.dtype) -> dict:
                      "steps_per_chunk", "ctas_per_sm"), out))
 
 
-class _SelectiveScan(torch.autograd.Function):
-    """Forward through ``ssm_scan``; backward through autograd of the plain
-    version on the saved inputs."""
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def forward(ctx, u, delta, A, B, C, D):
-        ctx.save_for_backward(u, delta, A, B, C, D)
-        return ssm_scan(u, delta, A, B, C, D)[0]
 
-    @staticmethod
-    def backward(ctx, dy):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y = ssm_scan_ref(*inputs)[0]
-        grads = torch.autograd.grad(y, inputs, dy)
-        return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad))
+def _backward(ctx, dy, _dh_last):
+    """Autograd of the plain version on the saved inputs."""
+    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        y = ssm_scan_ref(*inputs)[0]
+    grads = torch.autograd.grad(y, inputs, dy)
+    return tuple(g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad))
+
+
+torch.library.register_autograd(f"{_ops.NAMESPACE}::ssm_scan", _backward,
+                                setup_context=_setup, lib=_ops.LIB)
 
 
 def selective_scan(u, delta, A, B, C, D) -> torch.Tensor:
-    """Differentiable selective scan: y (B,S,DI) in u's dtype."""
-    return _SelectiveScan.apply(u, delta, A, B, C, D)
+    """Differentiable selective scan: y (B,S,DI) in u's dtype; forward
+    through ``ssm_scan``'s op, backward through autograd of the plain
+    version on the saved inputs."""
+    if _local.any_dtensor(u, delta, A, B, C, D):
+        return _local.selective_scan(SCAN, u, delta, A, B, C, D)[0]
+    return SCAN(u, delta, A, B, C, D)[0]

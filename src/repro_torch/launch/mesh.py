@@ -1,9 +1,19 @@
-"""Device meshes over the ranks of a process group, and the card's
-published rates.
+"""Device meshes over the ranks of a process group, the production mesh,
+and the card's published rates.
 
 A PyTorch process is one rank on one device, so a mesh of ``n`` devices is
 a ``DeviceMesh`` over ``n`` ranks. Building one touches no device state
 until it is called.
+
+The production mesh is the reference's 256 devices a pod and 512 across
+two pods, laid out for H100s: the ``model`` axis is 8 wide, the cards of
+one NVLink node, and ``data`` takes the rest ((32, 8); (2, 16, 8) with a
+``pod`` axis). The reference's 16 x 16 is a TPU v5e pod's torus
+(``launch/mesh.py``); a 16-wide model axis of H100s would cross nodes, so
+its tensor-parallel collectives would leave NVLink. ``fake_world`` brings
+up torch's ``fake`` process group of any size in this one process, so the
+dry run (``launch/dryrun.py``) can build that mesh and trace one rank's
+step without the cards.
 """
 
 from __future__ import annotations
@@ -39,6 +49,31 @@ def make_mesh(shape, axes, *, devices=None, device_type: str = "cuda"
         return DeviceMesh(device_type, mesh, mesh_dim_names=tuple(axes),
                           _init_backend=False, _rank=0)
     return DeviceMesh(device_type, mesh, mesh_dim_names=tuple(axes))
+
+
+PRODUCTION_SHAPES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 16, 8), ("pod", "data", "model"))}
+
+
+def fake_world(n: int, rank: int = 0) -> None:
+    """A process group of ``n`` ranks on torch's ``fake`` backend, with this
+    process as ``rank``: collectives complete without moving data. Replaces
+    any group of another size that is up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() == n and dist.get_rank() == rank:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh (module docstring) over the process group that
+    is up, which must have its 256 or 512 ranks (``fake_world``)."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def mesh_info(mesh: DeviceMesh) -> dict:

@@ -1,6 +1,6 @@
-"""Roofline bookkeeping, the analytic half: model FLOPs counted from the
-config, and the three roofline terms on the H100's published rates
-(``launch/mesh.py``).
+"""Roofline bookkeeping: model FLOPs counted from the config, the
+collective bytes of a traced step, and the three roofline terms on the
+H100's published rates (``launch/mesh.py``).
 
 The counts are the reference's (``launch/roofline.py``) term for term, so
 a model-FLOP figure means the same in both packages. Each term is a
@@ -101,6 +101,22 @@ def model_flops(cfg: ModelConfig, *, kind: str, batch: int, seq_len: int) -> flo
         attn = 4.0 * cfg.n_heads * cfg.head_dim * batch * ctx
         return mm + attn + _scan_flops_per_token(cfg) * batch
     raise ValueError(kind)
+
+
+COLL_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+              "collective-permute", "ragged-all-to-all")
+
+
+def collective_bytes(records) -> dict:
+    """Per-device operand bytes of the collectives recorded in a trace
+    (``(kind, bytes)`` pairs, ``OpAnalysis.collectives``), by kind and
+    count: the reference's shape, every one of its kinds a key."""
+    out = {k: 0.0 for k in COLL_KINDS}
+    counts = {k: 0 for k in COLL_KINDS}
+    for kind, n in records:
+        out[kind] += n
+        counts[kind] += 1
+    return {"by_kind": out, "counts": counts, "total": sum(out.values())}
 
 
 def roofline_terms(*, per_device_flops: float, per_device_bytes: float,

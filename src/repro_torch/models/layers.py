@@ -21,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _local
+
 NEG_INF = -2.0 ** 30  # large-but-finite; avoids NaNs from (-inf) - (-inf)
 
 
@@ -134,9 +136,33 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, hd: int,
 def _write_rows(buf: torch.Tensor, new: torch.Tensor, start: int
                 ) -> torch.Tensor:
     """A copy of ``buf`` with ``new`` written at rows ``start`` of axis 1."""
+    if _local.any_dtensor(buf, new):
+        return _write_rows_sharded(buf, new, start)
     out = buf.clone()
     out[:, start:start + new.shape[1]] = new
     return out
+
+
+def _write_rows_sharded(buf, new, start: int):
+    """``_write_rows`` on local shards: the cache keeps its placements;
+    ``new`` takes them but for its rows, which every rank holds whole; each
+    rank writes the rows that fall in its own span of axis 1."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..distributed.sharding import addressable_shard_spans
+    mesh = _local.mesh_of((buf, new))
+    buf, new = _local.as_dtensor(buf, mesh), _local.as_dtensor(new, mesh)
+    pl = [p if isinstance(p, Shard) else Replicate() for p in buf.placements]
+    bl = _local.local_of(buf, pl)
+    nl = _local.local_of(new, [Replicate() if p == Shard(1) else p
+                               for p in pl])
+    (region,) = addressable_shard_spans(mesh, pl, tuple(buf.shape))
+    lo, hi = region[1]
+    a, b = max(start, lo), min(start + new.shape[1], hi)
+    out = bl.clone()
+    if a < b:
+        out[:, a - lo:b - lo] = nl[:, a - start:b - start]
+    return _local.wrap(out, mesh, pl, tuple(buf.shape))
 
 
 def cache_update_full(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -209,7 +235,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B,S,C), w: (C,K) depthwise causal conv, no bias."""
     K = w.shape[-1]
     S = x.shape[1]
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(K):                  # K is 4: unrolled shifted adds
         shift = K - 1 - i
         xi = F.pad(x, (0, 0, shift, 0))[:, :S]

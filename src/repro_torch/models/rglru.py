@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _local
 from ..kernels.rglru_scan import lru_scan
 from .config import RGLRUConfig
 from .layers import causal_conv1d, conv_state_update
@@ -30,10 +31,9 @@ _C = 8.0
 def _block_diag_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                        ) -> torch.Tensor:
     """x: (...,W); w: (nb, W/nb, W/nb); b: (W,)."""
-    nb, bs, _ = w.shape
-    xs = x.reshape(*x.shape[:-1], nb, bs)
-    y = torch.einsum("...nb,nbc->...nc", xs, w)
-    return y.reshape(*x.shape[:-1], nb * bs) + b
+    nb = w.shape[0]
+    y = torch.einsum("...nb,nbc->...nc", _local.split_heads(x, nb), w)
+    return _local.merge_heads(y) + b
 
 
 def _gates(x: torch.Tensor, w: dict) -> tuple[torch.Tensor, torch.Tensor]:

@@ -32,10 +32,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 from torch.utils.checkpoint import (checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed.sharding import shard_act
+from ..kernels import _local
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ssm_scan import ssm_scan
@@ -222,10 +225,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 
 def _qkv(x, w, cfg: ModelConfig, kind: str, positions):
     """Projected, rotated q (B,S,H,hd) and k, v (B,S,KV,hd)."""
-    B, S, _D = x.shape
-    q = (x @ w["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ w["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ w["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = _local.split_heads(x @ w["wq"], cfg.n_heads)
+    k = _local.split_heads(x @ w["wk"], cfg.n_kv_heads)
+    v = _local.split_heads(x @ w["wv"], cfg.n_kv_heads)
     theta = _kind_theta(cfg, kind)
     return (L.rope(q, positions, theta=theta), L.rope(k, positions, theta=theta),
             v)
@@ -233,10 +235,12 @@ def _qkv(x, w, cfg: ModelConfig, kind: str, positions):
 
 def _conv_window(raw: torch.Tensor, K: int) -> torch.Tensor:
     """The last K - 1 conv inputs of a sequence (zero-padded in front when
-    it is shorter): the decode conv state after a prefill."""
+    it is shorter): the decode conv state after a prefill. A copy: a view
+    would keep the whole (B, S, C) projection alive in the cache, every
+    layer's until its segment's caches are stacked."""
     S = raw.shape[1]
     if S >= K - 1:
-        return raw[:, S - (K - 1):]
+        return raw[:, S - (K - 1):].clone()
     return F.pad(raw, (0, 0, K - 1 - S, 0))
 
 
@@ -292,13 +296,17 @@ def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
             delta, cache = _mamba_seq_with_cache(h, w["mamba"], scfg)
         else:
             delta = SSM.mamba_block(h, w["mamba"], scfg)
-        return x + delta, None, cache
+        return shard_act(x + delta, "residual"), None, cache
     if kind in ("global", "local"):
         B, S, _ = x.shape
         q, k, v = _qkv(h, w["attn"], cfg, kind, positions)
+        q = shard_act(q, "heads")
+        k = shard_act(k, "kv_heads")
+        v = shard_act(v, "kv_heads")
         window = _kind_window(cfg, kind)
         out = flash_attention(q, k, v, True, window)
-        x = x + out.reshape(B, S, cfg.q_dim) @ w["attn"]["wo"]
+        x = shard_act(x + _local.merge_heads(out) @ w["attn"]["wo"],
+                      "residual")
         if collect_cache:
             if kind == "local" and cfg.window:
                 cache = L.ring_fill_from_prefill(k, v, cfg.window)
@@ -312,10 +320,10 @@ def _apply_block_seq(kind: str, w: dict, x, cfg: ModelConfig, positions, *,
             delta, cache = _rglru_seq_with_cache(h, w["rec"], rcfg)
         else:
             delta = RG.recurrent_block(h, w["rec"], rcfg)
-        x = x + delta
+        x = shard_act(x + delta, "residual")
     h2 = L.rms_norm(x, w["norm2"], eps=cfg.norm_eps)
     delta, aux = _channel_mix(h2, w, cfg)
-    return x + delta, aux, cache
+    return shard_act(x + delta, "residual"), aux, cache
 
 
 def _select(tree, r: int):
@@ -338,11 +346,41 @@ def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor
     """Token ids (B,S) through the embedding, or frontend embeddings
     (B,S,D) cast to the model's dtype (``embed_inputs=False``)."""
     if not cfg.embed_inputs:
-        return inputs.to(getattr(torch, cfg.dtype))
+        return shard_act(inputs.to(getattr(torch, cfg.dtype)), "residual")
+    if _local.any_dtensor(params["embed"], inputs):
+        return shard_act(_embed_sharded(params["embed"], inputs), "residual")
     # index_select, whose CUDA backward (index_add_) has a deterministic
     # implementation under torch.use_deterministic_algorithms
     x = params["embed"].index_select(0, inputs.reshape(-1).to(torch.int64))
     return x.reshape(*inputs.shape, -1)
+
+
+def _embed_sharded(table, inputs):
+    """The lookup on local shards: each rank looks up the ids that fall in
+    its vocabulary rows (the table's shard on the model axis), zeros for
+    the rest, and the rows sum over the model axis (a ``Partial`` result,
+    the reference's one-hot gather under SPMD)."""
+    mesh = _local.mesh_of((table, inputs))
+    table, inputs = _local.as_dtensor(table, mesh), _local.as_dtensor(inputs, mesh)
+    md = _local.model_dim(mesh)
+    tl = _local.local_of(table, _local.keep_shards(table, {0}))
+    il = _local.local_of(inputs, _local.keep_shards(inputs, {0}))
+    V = table.shape[0]
+    sharded = md is not None and isinstance(table.placements[md], Shard) \
+        and table.placements[md].dim == 0 and V % mesh.size(md) == 0
+    ids = il.reshape(-1).to(torch.int64)
+    if sharded:
+        v0 = _local.coordinate(mesh, md) * tl.shape[0]
+        hit = (ids >= v0) & (ids < v0 + tl.shape[0])
+        ids = torch.where(hit, ids - v0, 0)
+    x = tl.index_select(0, ids)
+    if sharded:
+        x = x * hit[:, None].to(x.dtype)
+    out_pl = _local.keep_shards(inputs, {0})
+    if sharded:
+        out_pl[md] = Partial()
+    return _local.wrap(x.reshape(*il.shape, -1), mesh, out_pl,
+                       (*inputs.shape, table.shape[1]))
 
 
 def unembed_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -440,7 +478,8 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     x, aux, _ = _sequence(params, cfg, inputs, collect_cache=False,
                           cache_len=None, remat=remat)
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    out = x if return_hidden else x @ unembed_weights(params, cfg)
+    out = x if return_hidden else shard_act(x @ unembed_weights(params, cfg),
+                                            "logits")
     return out, aux
 
 
@@ -455,7 +494,8 @@ def prefill(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     x, _aux, caches = _sequence(params, cfg, inputs, collect_cache=True,
                                 cache_len=cache_len)
     x = L.rms_norm(x[:, -1:], params["final_norm"], eps=cfg.norm_eps)
-    return (x @ unembed_weights(params, cfg))[:, 0], caches, inputs.shape[1]
+    logits = shard_act(x @ unembed_weights(params, cfg), "logits")
+    return logits[:, 0], caches, inputs.shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -494,14 +534,15 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
     """One layer, one token. x: (B,1,D). Returns (x, new_cache). Attention
     of both kinds runs through the flash-decode kernel: a full cache with
     ``pos + 1`` valid rows, a ring with its filled slots. Mamba and RG-LRU
-    layers step their recurrence in plain PyTorch."""
+    layers step their recurrence in plain PyTorch. The residual is
+    constrained as on the sequence path (the reference leaves it to its
+    partitioner, which keeps it so)."""
     h = L.rms_norm(x, w["norm1"], eps=cfg.norm_eps)
     if kind == "mamba":    # no channel mix: the block is the whole layer
         delta, cache = SSM.mamba_step(h, cache, w["mamba"],
                                       cfg.ssm or SSMConfig())
-        return x + delta, cache
+        return shard_act(x + delta, "residual"), cache
     if kind in ("global", "local"):
-        B = x.shape[0]
         q, k, v = _qkv(h, w["attn"], cfg, kind, pos)
         if kind == "local" and cfg.window:
             cache = L.cache_update_ring(cache, k, v, pos)
@@ -510,14 +551,15 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
             cache = L.cache_update_full(cache, k, v, pos)
             valid = pos + 1
         out = flash_decode(q, cache["k"], cache["v"], valid)
-        x = x + out.reshape(B, 1, cfg.q_dim) @ w["attn"]["wo"]
+        x = shard_act(x + _local.merge_heads(out) @ w["attn"]["wo"],
+                      "residual")
     else:   # rglru
         delta, cache = RG.recurrent_step(h, cache, w["rec"],
                                          cfg.rglru or RGLRUConfig())
-        x = x + delta
+        x = shard_act(x + delta, "residual")
     h2 = L.rms_norm(x, w["norm2"], eps=cfg.norm_eps)
     delta, _ = _channel_mix(h2, w, cfg, decode=True)
-    return x + delta, cache
+    return shard_act(x + delta, "residual"), cache
 
 
 @torch.no_grad()
@@ -541,4 +583,5 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
                 per_pos[f"pos{i}"].append(c)
         new_caches.append({name: _stack(cs) for name, cs in per_pos.items()})
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ unembed_weights(params, cfg))[:, 0], new_caches
+    logits = shard_act(x @ unembed_weights(params, cfg), "logits")
+    return logits[:, 0], new_caches

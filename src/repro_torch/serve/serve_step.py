@@ -16,12 +16,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import _local
 from ..models import decode_step, prefill
 from ..models.config import ModelConfig
 from ..train.train_step import state_from_numpy  # re-exported: builds serving states
 
 
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
+    if _local.any_dtensor(logits):
+        # each rank's batch rows whole over the vocabulary, then argmax
+        logits = logits.redistribute(logits.device_mesh,
+                                     _local.keep_shards(logits, {0}))
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 

@@ -18,12 +18,12 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..checkpoint import serialize as ser
 from ..checkpoint.sharded import TensorSpec
 from ..device import resolve_device
+from ..kernels import _local
 from ..models import forward, init_params
 from ..models.config import ModelConfig
 from ..models.transformer import REMAT_MODES, unembed_weights
@@ -35,13 +35,66 @@ TrainState = dict  # {"params", "opt", "step", "rng", "data"}
 def _chunk_xent(hidden_c: torch.Tensor, head32: torch.Tensor,
                 labels_c: torch.Tensor) -> torch.Tensor:
     """One sequence chunk's loss sum from float32 logits."""
+    if _local.any_dtensor(hidden_c, head32, labels_c):
+        return _chunk_xent_sharded(hidden_c, head32, labels_c)
     logits = hidden_c.to(torch.float32) @ head32
     lse = torch.logsumexp(logits, dim=-1)
-    # the gold logit as a one-hot contraction: its gradient is elementwise,
-    # where gather's CUDA backward accumulates atomically
-    onehot = F.one_hot(labels_c, logits.shape[-1])
-    gold = torch.sum(logits * onehot.to(logits.dtype), dim=-1)
+    # the gold logit through a mask: its gradient is elementwise, where
+    # gather's CUDA backward accumulates atomically, and the mask is a byte
+    # an element where a one-hot would take eight
+    hit = labels_c[..., None] == torch.arange(logits.shape[-1],
+                                              device=logits.device)
+    gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     return torch.sum(lse - gold)
+
+
+def _chunk_xent_sharded(hidden_c, head32, labels_c):
+    """``_chunk_xent`` on local shards, the logits in the reference's
+    ``"logits"`` layout (``act_spec``: batch on the data axes, vocabulary
+    on the model axis where it divides it): each rank's logits of its rows and vocabulary slice; the row
+    maximum, the sum of exponentials and the gold logit reduced over the
+    model axis (a max and two sums of (rows, chunk) values), so no rank
+    holds a row's whole vocabulary. Returns the loss sum, a partial sum
+    over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = _local.mesh_of((hidden_c, head32, labels_c))
+    md = _local.model_dim(mesh)
+    hidden_c, head32, labels_c = (_local.as_dtensor(t, mesh)
+                                  for t in (hidden_c, head32, labels_c))
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and m != md
+            else Replicate() for m, p in enumerate(hidden_c.placements)]
+    from ..distributed.sharding import act_spec, current_rules
+    V = head32.shape[1]
+    rules = current_rules()
+    spec = act_spec((hidden_c.shape[0], hidden_c.shape[1], V), "logits",
+                    rules) if rules is not None else None
+    vocab = [Shard(1) if m == md and spec is not None and spec[2] is not None
+             else Replicate() for m in range(mesh.ndim)]
+    grad_rows = [Partial() if m == md and vocab[m] != Replicate() else p
+                 for m, p in enumerate(rows)]
+    h = _local.local_of(hidden_c, rows, grad_rows)
+    w = _local.local_of(head32, vocab)
+    y = _local.local_of(labels_c, rows)
+    logits = h.to(torch.float32) @ w                     # (b, c, V_local)
+    split = md is not None and vocab[md] != Replicate()
+    v0 = _local.coordinate(mesh, md) * w.shape[1] if split else 0
+    shape = (hidden_c.shape[0], hidden_c.shape[1])
+
+    def over_vocab(t, op):
+        """``t`` (b, c) reduced over the model axis by ``op``."""
+        if not split:
+            return t
+        pl = [Partial(op) if m == md else p for m, p in enumerate(rows)]
+        return _local.wrap(t, mesh, pl, shape).redistribute(
+            mesh, rows).to_local()
+    m = over_vocab(logits.detach().amax(dim=-1), "max")
+    s = over_vocab(torch.sum(torch.exp(logits - m[..., None]), dim=-1), "sum")
+    lse = m + torch.log(s)
+    hit = (y - v0)[..., None] == torch.arange(w.shape[1], device=logits.device)
+    gold = over_vocab(torch.sum(torch.where(hit, logits, 0.0), dim=-1), "sum")
+    part = torch.sum(lse - gold)
+    pl = [Partial() if p == Shard(0) else Replicate() for p in rows]
+    return _local.wrap(part, mesh, pl, ())
 
 
 def fused_unembed_xent(hidden: torch.Tensor, head: torch.Tensor,
@@ -166,6 +219,23 @@ def loss_and_grads(cfg: ModelConfig, params: dict, inputs: torch.Tensor,
             ser.unflatten_like(params, dict(zip(leaves, grads))))
 
 
+def _split_local(v, n: int):
+    """A batch-sharded DTensor (B, ...) as (n, B/n, ...) with dim 1 on the
+    data axes (``shard_microbatched``'s layout), each rank splitting its own
+    rows: microbatch i holds the i-th n-th of every rank's rows, so no row
+    moves between ranks. The rows a microbatch groups differ from the
+    contiguous split's; the accumulated loss and gradients are their sum
+    over all microbatches either way."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = v.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in v.placements]
+    local = _local.local_of(v, pl)
+    local = local.reshape(n, local.shape[0] // n, *local.shape[1:])
+    return _local.wrap(local, mesh, [Shard(1) if p == Shard(0) else p
+                                     for p in pl],
+                       (n, v.shape[0] // n, *v.shape[1:]))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     remat: str = "none", microbatches: int = 1,
                     aux_weight: float | None = None, fused_ce: bool = True):
@@ -173,7 +243,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
     With ``microbatches`` > 1 the batch's dim 0 is split into that many
     equal microbatches (``shard_microbatched`` keeps them data-sharded
-    under sharding rules; a no-op without), each microbatch's loss, ce, aux
+    under sharding rules; a no-op without; a DTensor batch is split on
+    each rank, ``_split_local``), each microbatch's loss, ce, aux
     and float32 gradients are summed in microbatch order onto zeros, and
     the sums are multiplied by ``1 / microbatches``, as the reference's
     ``lax.scan`` accumulates them."""
@@ -190,14 +261,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         from ..distributed.sharding import shard_microbatched
         B = batch["inputs"].shape[0]
         assert B % microbatches == 0, (B, microbatches)
-        mb = shard_microbatched({
-            k: v.reshape(microbatches, B // microbatches, *v.shape[1:])
-            for k, v in batch.items()})
+        if _local.any_dtensor(*batch.values()):
+            mb = {k: _split_local(v, microbatches) for k, v in batch.items()}
+        else:
+            mb = shard_microbatched({
+                k: v.reshape(microbatches, B // microbatches, *v.shape[1:])
+                for k, v in batch.items()})
         dev = batch["inputs"].device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         loss_s, ce_s, aux_s = zero, zero, zero
         named = ser.flatten_state(params)
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=torch.float32)
                for n, p in named.items()}
         for i in range(microbatches):
             loss, ce, aux, grads = single(params, mb["inputs"][i],

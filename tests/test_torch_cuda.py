@@ -1395,3 +1395,58 @@ def test_two_rank_sharded_urgent_save_and_region_restore(cuda, tmp_path):
         res = json.loads(out.strip().splitlines()[-1])
         assert res["saved"]["absmax"] >= 1 and res["saved"]["quantize"] >= 1
         assert res["restored"]["dequantize"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch ops (kernels/_ops.py): the CUDA implementation
+# launches its kernel, and its outputs have the fake implementation's shapes
+# ---------------------------------------------------------------------------
+
+def _cuda_op_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {
+        "flash_attention_fwd": ((((2, 128, 4, 64), bf16), ((2, 128, 2, 64), bf16),
+                                 ((2, 128, 2, 64), bf16)), (True, 64),
+                                ("flash_attention_fwd",)),
+        "flash_attention_bwd": ((((2, 128, 4, 64), bf16), ((2, 128, 2, 64), bf16),
+                                 ((2, 128, 2, 64), bf16), ((2, 128, 4, 64), bf16),
+                                 ((2, 4, 128), f32), ((2, 128, 4, 64), bf16)),
+                                (True, 0),
+                                ("flash_attention_dkv", "flash_attention_dq")),
+        "flash_decode": ((((2, 4, 64), bf16), ((2, 256, 2, 64), bf16),
+                          ((2, 256, 2, 64), bf16)), (200,),
+                         ("decode_attention", "decode_attention_merge")),
+        "ssm_scan": ((((2, 64, 256), bf16), ((2, 64, 256), bf16), ((256, 16), f32),
+                      ((2, 64, 16), f32), ((2, 64, 16), f32), ((256,), f32)), (),
+                     ("ssm_scan",)),
+        "rglru_scan": ((((2, 64, 256), f32), ((2, 64, 256), f32)), (),
+                       ("rglru_scan",)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cuda_op_cases()))
+def test_kernel_op_launches_with_its_fake_shapes(cuda, name):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    shapes, extra, counters = _cuda_op_cases()[name]
+    op = getattr(torch.ops.repro_torch, name).default
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    real = [(torch.rand(s, generator=gen, device=cuda) * 0.5).to(dt)
+            for s, dt in shapes]
+    if name == "flash_attention_bwd":     # o and lse from the forward
+        o, lse = torch.ops.repro_torch.flash_attention_fwd(*real[:3], *extra)
+        real[3], real[4] = o, lse
+    if name == "ssm_scan":                # A negative, as the model's
+        real[2] = -real[2]
+    _lib.library()
+    _lib.reset_launches()
+    got = op(*real, *extra)
+    torch.cuda.synchronize()
+    for c in counters:
+        assert _lib.LAUNCHES[c] == 1, (c, dict(_lib.LAUNCHES))
+    with FakeTensorMode() as fake:
+        want = op(*[fake.from_tensor(t) for t in real], *extra)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [(tuple(t.shape), t.dtype, t.device) for t in got] == \
+        [(tuple(t.shape), t.dtype, t.device) for t in want]
+    assert all(torch.isfinite(t.float()).all() for t in got)
