@@ -15,7 +15,10 @@ and minitron-8b at their published widths cut to half their depth
 deepseek-moe-16b's width, all with seeded weights:
 
   kernels         the chunk digest (an urgent save's SHA-1 addresses and
-                  CRC-32s) vs hashlib and zlib; fingerprint (both
+                  CRC-32s; its row made on spot_loop's urgent save: the
+                  launch alone and the wrapper's call, one chunk and the
+                  save's chunks, the rounds' measured chain latency and
+                  bound, the CTA layout) vs hashlib and zlib; fingerprint (both
                   launches) / absmax / quantize /
                   dequantize vs plain; flash-attention forward, flash
                   decode, the selective scan (bf16 and float32, a row
@@ -61,7 +64,12 @@ deepseek-moe-16b's width, all with seeded weights:
                   trace's live bytes, the counted TFLOP/s; meanwhile, in a
                   process of its own, python -m repro_torch.launch.dryrun
                   on gemma3-1b's decode_32k cell on the production mesh
-                  (256 ranks of the fake process group), status ok
+                  (256 ranks of the fake process group), status ok; then
+                  gemma3-1b's decode step on the card (4 x 32768 cache)
+                  with its caches donated, as the dry run's decode cells
+                  run it, and functional, as serving runs it: logits bit
+                  for bit alike, the donated step's allocated memory
+                  growing at least one cache less
   spot_loop_gemma3  the spot_loop contract at gemma3-1b's full width cut
                   to one period (6 layers), sequences of 1024
   launch_train    python -m repro_torch.launch.train at gemma3-1b's full
@@ -170,6 +178,10 @@ INT32_OPS_PER_SM_CLOCK = 64    # 32-bit integer multiply, shift and logic
                                # per SM per clock (H100)
 H100_SMS = 132
 SHA1_OPS_PER_BLOCK = 1016      # SHA-1's integer operations a 64-byte block
+CHAIN_OPS_PER_ROUND = 1.5      # SHA-1's critical path: a = rol(a, 5) + p is
+                               # one instruction, and the next round's p
+                               # (f, then an add) hangs off the same a:
+                               # three dependent operations every two rounds
 ATT_TOL = 2e-5                 # attention kernels vs plain in float32, abs;
                                # their float32 log-sum-exp, abs and rel
 BF16_RTOL = 2 ** -7            # in bfloat16 each output within one bf16 ulp
@@ -179,9 +191,12 @@ BF16_RTOL = 2 ** -7            # in bfloat16 each output within one bf16 ulp
 
 LT_BATCH, LT_SEQ, LT_MB = 8, 512, 4   # launch_train: the CLI's batch,
                                       # sequence and microbatches
-LT_TARGET_S = 85.0             # launch_train: the uninterrupted run's steps
-LT_EVICT_LEAD_S = 6.0          # launch_train: the eviction comes this many
-                               # seconds of stepping (4 steps) before the end
+LT_TARGET_S = 95.0             # launch_train: the uninterrupted run's steps
+LT_EVICT_LEAD_S = 12.0         # launch_train: the eviction comes this many
+                               # seconds of stepping (about 7 steps) before
+                               # the end: room for the evicted run to step
+                               # faster than the first, as the restored run
+                               # has room before the second eviction
 LT_PROVISION_S = 1.0           # launch_train: a replacement's provisioning
 URGENT_BUDGET_S = 20.0         # an urgent save's budget: the notice less
                                # room for the step it follows
@@ -387,15 +402,23 @@ def fingerprint_kernels(embed, cases) -> dict:
 def chunk_digest_kernel(dev, leaves) -> dict:
     """The chunk digest against its plain version (hashlib's SHA-1 and
     zlib's CRC-32), every chunk, on ragged, mixed-dtype cases in one call
-    and at 1 MiB, 4 KiB and 64-byte chunks; then checked and timed on
-    ``leaves``, the leaves a spot loop's urgent save digested (one launch
-    over all their 1 MiB chunks, as in the save), and on one chunk alone.
-    Its plain version runs on the host, timed on the host's clock. Its
-    bound is the larger of the operations over every SM and one chunk's
-    serial SHA-1 chain on its one thread."""
+    and at 1 MiB, 4 KiB and 64-byte chunks, and on a leaf that starts 4
+    bytes past a 16-byte boundary; then checked and timed on ``leaves``,
+    the leaves a spot loop's urgent save digested (one launch over all
+    their 1 MiB chunks, as in the save), and on one chunk alone. ``ms``
+    is the launch alone (CUDA events around launches on a chunk table
+    already on the card); ``call_ms`` the wrapper's whole call, which also
+    builds the table on the host and copies it and the digests through
+    pinned memory. Its plain version runs on the host, timed on the host's
+    clock. Its bound is one chunk's SHA-1 chain: blocks x 80 rounds x 1.5
+    dependent integer operations a round (``CHAIN_OPS_PER_ROUND``) x the
+    latency measured on the card with a timed chain of the rounds'
+    rotate-and-add."""
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.chunk_digest import (chunk_digests,
                                                   chunk_digests_ref)
+    from repro_torch.kernels.chunk_digest import ops as cd
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     cases = [torch.randn((3 * CHUNK // 4 + 5,), generator=g, device=dev),
@@ -405,7 +428,11 @@ def chunk_digest_kernel(dev, leaves) -> dict:
                            generator=g, device=dev),
              torch.zeros((0,), device=dev),
              torch.randint(0, 1 << 30, (5,), dtype=torch.int32, generator=g,
-                           device=dev)]
+                           device=dev),
+             # 4-byte but not 16-byte aligned: the kernel's 4-byte copies
+             torch.randint(0, 1 << 30, (CHUNK // 2 + 9,), dtype=torch.int32,
+                           generator=g, device=dev)[1:]]
+    need(cases[-1].data_ptr() % 16 == 4, "the misaligned case is aligned")
     for cb in (CHUNK, 4096, 64):
         got = chunk_digests(cases, cb).result()
         need(got == [chunk_digests_ref(t.cpu(), cb) for t in cases],
@@ -423,29 +450,52 @@ def chunk_digest_kernel(dev, leaves) -> dict:
     clock = sm_clock_mhz()
     int_rate = H100_SMS * INT32_OPS_PER_SM_CLOCK * clock * 1e6
     # one chunk alone: the time a call takes whatever its chunk count, since
-    # one thread walks each chunk (the leaves' first 1 MiB)
+    # a chunk's compressions are one chain (the leaves' first 1 MiB)
     one = next(t for t in leaves if t.numel() * t.element_size() >= CHUNK)
     one = one.reshape(-1)[:CHUNK // one.element_size()]
     need(chunk_digests([one], CHUNK).result()[0]
          == chunk_digests_ref(one.cpu(), CHUNK),
          "the one-chunk call's digest differs from hashlib/zlib")
-    one_ms = time_ms(lambda: chunk_digests([one], CHUNK), reps=5, runs=3)
-    # operations: SHA-1's ~1,016 integer operations a 64-byte block (80
-    # rounds and the schedule) and CRC-32's ~15 a word by slicing-by-4, 20
-    # a byte, over every SM; and one chunk's serial chain, which is SHA-1's
-    # block chain alone (the CRC is independent of it and could run on
-    # another thread): at most one operation a clock
+    tables = {}
+    for name, ts in (("leaves", leaves), ("one", [one])):
+        desc, _ = cd.chunk_table(ts, CHUNK)
+        tables[name] = torch.tensor(desc, dtype=torch.int64, device=dev)
+    ms = time_ms(lambda: cd.launch(tables["leaves"]), reps=5, runs=3)
+    one_ms = time_ms(lambda: cd.launch(tables["one"]), reps=5, runs=3)
+    call_ms = time_ms(lambda: chunk_digests(leaves, CHUNK), reps=5, runs=3)
+    one_call_ms = time_ms(lambda: chunk_digests([one], CHUNK), reps=5, runs=3)
+    # the chain: the measured clocks of a dependent step of each kind
+    chain = {k: cd.chain_clocks(dev, k) for k in cd.CHAINS}
+    latency = chain["rotate_add"]           # one LEA.HI a step
+    blocks = CHUNK // 64 + 1                # the longest chunk's, padding too
+    chain_ms = blocks * 80 * CHAIN_OPS_PER_ROUND * latency / (clock * 1e6) * 1e3
+    chain_2ops_ms = blocks * 80 * 2 * latency / (clock * 1e6) * 1e3
+    rounds_ms = blocks * 80 * chain["sha1_round"] / (clock * 1e6) * 1e3
+    old_chain_ms = SHA1_OPS_PER_BLOCK / 64 * CHUNK / (clock * 1e6) * 1e3
+    # over every SM: SHA-1's integer operations a block and CRC-32's by
+    # slicing-by-16 (about 20 a byte), the bytes read once
     ops_bound = bound(nbytes + n_chunks * 24, nbytes * 20, int_rate)
-    chain_ms = SHA1_OPS_PER_BLOCK / 64 * CHUNK / (clock * 1e6) * 1e3
     row_bound = (chain_ms, "operations") if chain_ms > ops_bound[0] \
         else ops_bound
-    return {"chunk_digest": dict(
-        ms=time_ms(lambda: chunk_digests(leaves, CHUNK), reps=5, runs=3),
-        one_chunk_ms=one_ms, plain_ms=plain_ms, plain_on="host",
+    ptxas = {k: v for k, v in _lib.ptxas_report().items()
+             if "chunk_digest_kernel" in k}
+    row = dict(
+        ms=ms, call_ms=call_ms, one_chunk_ms=one_ms,
+        one_chunk_call_ms=one_call_ms, plain_ms=plain_ms, plain_on="host",
         library_ms=None, max_abs_err=float(mismatched), chunks=n_chunks,
         bound=row_bound, ops_bound_ms=ops_bound[0], chain_bound_ms=chain_ms,
-        sm_clock_mhz=clock, shape=[list(t.shape) for t in leaves],
-        dtype=[str(t.dtype).replace("torch.", "") for t in leaves])}
+        chain_bound_2ops_ms=chain_2ops_ms, chain_bound_all_ops_ms=old_chain_ms,
+        rounds_alone_ms=rounds_ms, chain_clocks=chain,
+        chain_ops_per_round=CHAIN_OPS_PER_ROUND, layout=cd.layout(),
+        ctas=-(-n_chunks // cd.layout()["chunks_per_cta"]),
+        ptxas=list(ptxas.values()), sm_clock_mhz=clock,
+        shape=[list(t.shape) for t in leaves],
+        dtype=[str(t.dtype).replace("torch.", "") for t in leaves])
+    print(json.dumps({"chunk_digest": {k: row[k] for k in (
+        "ms", "call_ms", "one_chunk_ms", "one_chunk_call_ms", "chunks",
+        "ctas", "chain_clocks", "chain_bound_ms", "chain_bound_2ops_ms",
+        "rounds_alone_ms", "layout", "ptxas")}}), flush=True)
+    return {"chunk_digest": row}
 
 
 # ---------------------------------------------------------------------------
@@ -1865,6 +1915,8 @@ DRYRUN_KNOBS = {"fsdp": False, "remat": "none", "microbatches": 1,
                 "factored_opt": False}   # train_gemma3's step
 DRYRUN_MEM_TOL = 0.10          # measured peak vs the trace's, relative
 DRYRUN_CLI_TIMEOUT_S = 240
+DRYRUN_DECODE_B, DRYRUN_DECODE_LEN = 4, 32768   # (d): the decode_32k cell's
+                                                # cache length, 4 sequences
 
 
 def phase_dryrun(dev, card, launches, workdir) -> dict:
@@ -1876,7 +1928,12 @@ def phase_dryrun(dev, card, launches, workdir) -> dict:
     memory (less what was allocated before) must be within
     ``DRYRUN_MEM_TOL`` of the trace's ``live_bytes``; (c) ``python -m
     repro_torch.launch.dryrun`` on gemma3-1b's decode_32k cell on the
-    production mesh (256 ranks of the fake process group), status ok."""
+    production mesh (256 ranks of the fake process group), status ok; (d)
+    gemma3-1b's decode step at the full config on the card, once with its
+    caches donated (as the dry run's decode cells run it) and once
+    functional (as serving runs it), from the same caches: logits bitwise
+    equal, and the donated step's growth of allocated memory below the
+    functional step's by at least one copy of the caches."""
     from repro_torch.configs import SHAPES, get_config
     cfg = get_config("gemma3_1b")
     SHAPES["chip_smoke_train"] = DRYRUN_CELL
@@ -1915,6 +1972,68 @@ def _dryrun(cfg, dev, card, launches, workdir) -> dict:
     print(json.dumps({"dryrun_cli": cell, "wall_s": cli_s}), flush=True)
     out["cli"] = {"wall_s": cli_s, "trace_s": cell["compile_s"],
                   "cell": cell}
+    out["decode_donated"] = _dryrun_decode(cfg, dev, launches)
+    return out
+
+
+def _dryrun_decode(cfg, dev, launches) -> dict:
+    """(d) of ``phase_dryrun``: DRYRUN_DECODE_B sequences, caches of
+    DRYRUN_DECODE_LEN positions (seeded values), one step at a position
+    near their end."""
+    import torch
+    from repro_torch.checkpoint import serialize as ser
+    from repro_torch.kernels import _lib
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import make_decode_step
+    B, L = DRYRUN_DECODE_B, DRYRUN_DECODE_LEN
+    params = init_params(cfg, seed=11, device=dev)
+    caches = init_cache(cfg, B, L, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    leaves = list(ser.flatten_state(caches).values())
+    for t in leaves:
+        t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.5)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev)
+    pos = L - 3
+    functional = make_decode_step(cfg, device=dev)
+    donating = make_decode_step(cfg, device=dev, donate_caches=True)
+    functional(params, tok, caches, pos - 1)        # warm-up: workspaces
+
+    def step(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(params, tok, caches, pos)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base, \
+            time.perf_counter() - t0
+    _lib.reset_launches()
+    (t_f, l_f, c_f), grow_f, s_f = step(functional)
+    del c_f
+    (t_d, l_d, c_d), grow_d, s_d = step(donating)
+    launches["dryrun_decode"] = counted = dict(_lib.LAUNCHES)
+    need(torch.equal(l_f, l_d) and torch.equal(t_f, t_d),
+         "dryrun decode: the donated step's logits differ from the "
+         "functional step's")
+    need(c_d is caches and all(a is b for a, b in zip(
+        ser.flatten_state(c_d).values(), leaves)),
+        "dryrun decode: the donated step did not return the caches it took")
+    need(grow_f - grow_d >= cache_bytes,
+         f"dryrun decode: the donated step grew {grow_d} B, the functional "
+         f"{grow_f} B: not one cache ({cache_bytes} B) apart")
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    need(counted["decode_attention"] == 2 * n_attn,
+         f"dryrun decode: {counted['decode_attention']} flash decode "
+         f"launches in two steps, expected {2 * n_attn}")
+    out = {"batch": B, "cache_len": L, "cache_bytes": cache_bytes,
+           "functional_growth_bytes": grow_f, "donated_growth_bytes": grow_d,
+           "functional_step_s": s_f, "donated_step_s": s_d,
+           "logits_equal": True, "launches": counted}
+    print(json.dumps({"dryrun_decode": out}), flush=True)
+    del params, caches, c_d
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2132,7 +2251,7 @@ def phase_launch_train(dev, workdir, launches) -> dict:
     L = base["total_time_s"]
     # one eviction at N: the restored run ends near L + notice (30 s) +
     # provision + restore, before the second eviction at 2N while the
-    # restore takes under L - 2 * lead - 31 s (42 s at L = 85); the first
+    # restore takes under L - 2 * lead - 31 s (40 s at L = 95); the first
     # comes before the last step while the second run is not faster by
     # the lead
     every = L - LT_EVICT_LEAD_S

@@ -84,6 +84,11 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     # (desc, n_chunks, sha, crc, stream)
     "spot_chunk_digest": (_P, _I64, _P, _P, _P),
+    # (int[5] out) -> the chunk digest's launch layout
+    "spot_chunk_digest_layout": (_P,),
+    # (mode, iters, clocks, sink, stream): a dependent chain timed on one
+    # thread (the rounds' rotate-and-add, whole rounds)
+    "spot_chunk_digest_chain_clocks": (_I32, _I32, _P, _P, _P),
     # (x, nbytes, itemsize, block_bytes, slice_bytes, n_blocks, partial, stream)
     "spot_fingerprint_partials": (_P, _I64, _I32, _I64, _I64, _I64, _P, _P),
     # (partial, n_blocks, slices_per_block, out, old|NULL, diff|NULL, stream)

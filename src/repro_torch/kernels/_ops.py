@@ -22,6 +22,7 @@ run them on a ``DTensor``'s local shards (``local_region``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -47,6 +48,23 @@ def define(name: str, schema: str, *, impl: Callable, plain: Callable,
     register_flop_formula(packet)(flops)
     PLAIN[packet.default] = plain
     return packet.default
+
+
+@contextlib.contextmanager
+def autograd_inside():
+    """Autograd on inside an op's implementation. A dispatch mode
+    (``FakeTensorMode``, ``launch/op_analysis.py``'s analysis) runs an op's
+    implementation below autograd, with autograd's dispatch keys excluded,
+    so an implementation that differentiates (the scans' backward: autograd
+    of their plain versions) takes them back for its own ops."""
+    dk = torch._C.DispatchKey
+    include = torch._C._dispatch_tls_local_include_set()
+    exclude = torch._C._dispatch_tls_local_exclude_set()
+    for key in (dk.ADInplaceOrView, dk.AutogradOther, dk.AutogradCPU,
+                dk.AutogradCUDA, dk.AutogradMeta):
+        exclude = exclude.remove(key)
+    with torch._C._ForceDispatchKeyGuard(include, exclude), torch.enable_grad():
+        yield
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,7 @@ no fallback to the plain version.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
@@ -21,7 +22,8 @@ import torch
 from .. import _lib
 from .ref import chunk_digests_ref
 
-__all__ = ["ChunkDigests", "chunk_digests", "digestible"]
+__all__ = ["ChunkDigests", "chain_clocks", "chunk_digests", "chunk_table",
+           "digestible", "launch", "layout"]
 
 
 def digestible(t: torch.Tensor) -> bool:
@@ -57,6 +59,68 @@ class ChunkDigests:
         return self._done
 
 
+def chunk_table(tensors: Sequence[torch.Tensor], chunk_bytes: int
+                ) -> tuple[list[tuple[int, int]], list[int]]:
+    """The kernel's chunk table for ``tensors`` (CUDA, ``digestible``, one
+    device): (address, length) of every ``chunk_bytes`` window of each
+    tensor's raw bytes, and each tensor's count of windows."""
+    dev = tensors[0].device
+    desc, counts = [], []
+    for t in tensors:
+        if not digestible(t) or t.device != dev:
+            raise ValueError("chunk_digests: every tensor must be contiguous, "
+                             f"4-byte aligned and on {dev}")
+        nbytes = t.numel() * t.element_size()
+        base = t.data_ptr()
+        offs = range(0, nbytes, chunk_bytes)
+        desc += [(base + off, min(chunk_bytes, nbytes - off)) for off in offs]
+        counts.append(len(offs))
+    return desc, counts
+
+
+def launch(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel over a chunk table already on the device
+    (int64 (n, 2), ``chunk_table``'s rows), on the current stream: the SHA-1
+    words (int32 (n, 5)) and CRC-32s (int32 (n,)) on the device."""
+    n, dev = table.shape[0], table.device
+    sha = _lib.kernel_output((n, 5), torch.int32, dev)
+    crc = _lib.kernel_output((n,), torch.int32, dev)
+    err = _lib.library().spot_chunk_digest(
+        table.data_ptr(), n, sha.data_ptr(), crc.data_ptr(),
+        _lib.stream_ptr(dev))
+    _lib.check(err, "chunk_digest")
+    _lib.LAUNCHES["chunk_digest"] += 1
+    return sha, crc
+
+
+def layout() -> dict:
+    """The kernel's launch layout: chunks a CTA (a lane each), threads a CTA
+    (the loads-and-schedule, CRC and rounds warps), 64-byte blocks a staged
+    stage, stages in the byte ring, dynamic shared memory bytes a CTA."""
+    out = (ctypes.c_int * 5)()
+    _lib.check(_lib.library().spot_chunk_digest_layout(out),
+               "chunk_digest_layout")
+    return dict(zip(("chunks_per_cta", "threads", "blocks_per_stage",
+                     "ring_stages", "smem_bytes"), out))
+
+
+CHAINS = ("rotate_add", "sha1_round")
+
+
+def chain_clocks(device: torch.device, chain: str = "rotate_add",
+                 iters: int = 80 * 1024) -> float:
+    """Clocks one step of a dependent chain takes on one thread of the card,
+    timed with the SM's clock over ``iters`` steps: ``"rotate_add"`` the
+    rounds' own step (a = rol(a, 5) + x, one instruction), ``"sha1_round"``
+    a whole SHA-1 round from a schedule held in registers."""
+    clocks = torch.zeros((1,), dtype=torch.int64, device=device)
+    sink = torch.zeros((1,), dtype=torch.int32, device=device)
+    _lib.check(_lib.library().spot_chunk_digest_chain_clocks(
+        CHAINS.index(chain), iters, clocks.data_ptr(), sink.data_ptr(),
+        _lib.stream_ptr(device)), "chunk_digest_chain_clocks")
+    return int(clocks.item()) / iters
+
+
 def chunk_digests(tensors: Sequence[torch.Tensor], chunk_bytes: int) -> ChunkDigests:
     """Start the digests of every ``chunk_bytes`` window of each tensor's raw
     bytes. All tensors on one device: CPU tensors go through the plain
@@ -70,29 +134,14 @@ def chunk_digests(tensors: Sequence[torch.Tensor], chunk_bytes: int) -> ChunkDig
         return ChunkDigests([], done=[chunk_digests_ref(t, chunk_bytes)
                                       for t in tensors])
     dev = tensors[0].device
-    desc, counts = [], []
-    for t in tensors:
-        if not digestible(t) or t.device != dev:
-            raise ValueError("chunk_digests: every tensor must be contiguous, "
-                             f"4-byte aligned and on {dev}")
-        nbytes = t.numel() * t.element_size()
-        base = t.data_ptr()
-        offs = range(0, nbytes, chunk_bytes)
-        desc += [(base + off, min(chunk_bytes, nbytes - off)) for off in offs]
-        counts.append(len(offs))
+    desc, counts = chunk_table(tensors, chunk_bytes)
     n = len(desc)
     sha = torch.empty((n, 5), dtype=torch.int32, pin_memory=True)
     crc = torch.empty((n,), dtype=torch.int32, pin_memory=True)
     if n:
         table = torch.tensor(desc, dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
-        sha_d = _lib.kernel_output((n, 5), torch.int32, dev)
-        crc_d = _lib.kernel_output((n,), torch.int32, dev)
-        err = _lib.library().spot_chunk_digest(
-            table.data_ptr(), n, sha_d.data_ptr(), crc_d.data_ptr(),
-            _lib.stream_ptr(dev))
-        _lib.check(err, "chunk_digest")
-        _lib.LAUNCHES["chunk_digest"] += 1
+        sha_d, crc_d = launch(table)
         sha.copy_(sha_d, non_blocking=True)
         crc.copy_(crc_d, non_blocking=True)
     event = torch.cuda.Event()

@@ -4,9 +4,13 @@ tensors.
 The scan is the torch op ``repro_torch::rglru_scan`` (``kernels/_ops.py``).
 ``rglru_scan`` is the raw entry point (h and the last state) and refuses
 inputs that require grad. ``lru_scan`` is differentiable: the op's backward
-differentiates the plain version, as the reference's ``custom_vjp`` does
-(``kernels/rglru_scan/ops.py``). A CUDA tensor always launches the kernel
-or raises; there is no fallback."""
+is the op ``repro_torch::rglru_scan_bwd``, which differentiates the plain
+version, as the reference's ``custom_vjp`` does
+(``kernels/rglru_scan/ops.py``). The backward has no kernel, on the card as
+on the CPU (the reference has none either): it is an op so that a traced
+step sees one backward op a layer, with its fake implementation and FLOP
+formula, instead of the plain version's ops a step at a time. A CUDA tensor
+always launches the forward kernel or raises; there is no fallback."""
 
 from __future__ import annotations
 
@@ -85,16 +89,47 @@ def scan_layout(B: int, W: int, dtype: torch.dtype) -> dict:
                      "smem_bytes", "ctas_per_sm"), out))
 
 
+def _scan_bwd(a, b, dh):
+    """The gradients of h with respect to (a, b): autograd of the plain
+    version on those inputs, on either device (no kernel)."""
+    with _ops.autograd_inside():
+        inputs = [t.detach().requires_grad_(True) for t in (a, b)]
+        h = rglru_scan_ref(*inputs)[0]
+        return tuple(torch.autograd.grad(h, inputs, dh))
+
+
+def _scan_bwd_fake(a, b, dh):
+    _check(a, b)
+    return a.new_empty(a.shape), b.new_empty(b.shape)
+
+
+def _scan_bwd_flops(a_shape, b_shape, dh_shape, *, out_shape=None,
+                    **_kw) -> int:
+    """What the plain autograd computes, counted as the forward's formula
+    is: 5 FLOPs for each step and channel of each batch row (the forward
+    recomputed, a multiply and an add; the gradient carried back through
+    a, a's own product with the previous state, and the add that joins the
+    two gradients of each h), 2 fewer at the first step, whose previous
+    state is zero. Autograd's adds of each step's gradient slice into a
+    zero tensor the size of the whole input (quadratic in S, an artefact
+    of differentiating a Python loop that the reference's scan does not
+    have) are not counted."""
+    Bb, S, W = a_shape
+    return Bb * W * (5 * S - 2)
+
+
+BWD = _ops.define("rglru_scan_bwd",
+                  "(Tensor a, Tensor b, Tensor dh) -> (Tensor, Tensor)",
+                  impl=_scan_bwd, plain=_scan_bwd, fake=_scan_bwd_fake,
+                  flops=_scan_bwd_flops)
+
+
 def _setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
 def _backward(ctx, dh, _dh_last):
-    """Autograd of the plain version on the saved inputs."""
-    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-    with torch.enable_grad():
-        h = rglru_scan_ref(*inputs)[0]
-    grads = torch.autograd.grad(h, inputs, dh)
+    grads = BWD(*ctx.saved_tensors, dh)
     return tuple(g if need else None
                  for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -105,8 +140,8 @@ torch.library.register_autograd(f"{_ops.NAMESPACE}::rglru_scan", _backward,
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Differentiable RG-LRU scan: h (B,S,W) in a's dtype; forward through
-    ``rglru_scan``'s op, backward through autograd of the plain version on
-    the saved inputs."""
+    ``rglru_scan``'s op, backward through ``rglru_scan_bwd`` (autograd of
+    the plain version) on the saved inputs."""
     if _local.any_dtensor(a, b):
         return _local.lru_scan(SCAN, a, b)[0]
     return SCAN(a, b)[0]

@@ -4,9 +4,13 @@ CPU tensors.
 The scan is the torch op ``repro_torch::ssm_scan`` (``kernels/_ops.py``).
 ``ssm_scan`` is the raw entry point (y and the last state) and refuses
 inputs that require grad. ``selective_scan`` is differentiable: the op's
-backward differentiates the plain version, as the reference's
-``custom_vjp`` does (``kernels/ssm_scan/ops.py``). A CUDA tensor always
-launches the kernel or raises; there is no fallback.
+backward is the op ``repro_torch::ssm_scan_bwd``, which differentiates the
+plain version, as the reference's ``custom_vjp`` does
+(``kernels/ssm_scan/ops.py``). The backward has no kernel, on the card as
+on the CPU (the reference has none either): it is an op so that a traced
+step sees one backward op a layer, with its fake implementation and FLOP
+formula, instead of the plain version's ops a step at a time. A CUDA
+tensor always launches the forward kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -140,16 +144,53 @@ def scan_layout(DI: int, dtype: torch.dtype) -> dict:
                      "steps_per_chunk", "ctas_per_sm"), out))
 
 
+def _scan_bwd(u, delta, A, B, C, D, dy):
+    """The gradients of y with respect to (u, delta, A, B, C, D): autograd of
+    the plain version on those inputs, on either device (no kernel)."""
+    with _ops.autograd_inside():
+        inputs = [t.detach().requires_grad_(True)
+                  for t in (u, delta, A, B, C, D)]
+        y = ssm_scan_ref(*inputs)[0]
+        return tuple(torch.autograd.grad(y, inputs, dy))
+
+
+def _scan_bwd_fake(u, delta, A, B, C, D, dy):
+    _check(u, delta, A, B, C, D)
+    return tuple(t.new_empty(t.shape) for t in (u, delta, A, B, C, D))
+
+
+def _scan_bwd_flops(u_shape, delta_shape, A_shape, B_shape, C_shape, D_shape,
+                    dy_shape, *, out_shape=None, **_kw) -> int:
+    """What the plain autograd computes, counted as the forward's formula
+    is (each multiply, add and exponential an element; a reduction its
+    input): the forward recomputed (6 an element of the state, 3 of y) and
+    its backward, 22 for each (step, channel, state) of each batch row and
+    8 for each (step, channel); the first step, whose previous state is
+    zero, has 2 fewer for each (channel, state) of each row, and A's
+    gradient is summed over the S steps. Exact where every dimension is
+    above 1 (one of 1 drops a broadcast's reduction). Not counted:
+    autograd's adds of each step's gradient slice into a zero tensor the
+    size of the whole input, a cost quadratic in S that differentiating a
+    Python loop brings and the reference's scan does not."""
+    Bb, S, DI = u_shape
+    N = A_shape[1]
+    return 22 * Bb * S * DI * N + 8 * Bb * S * DI + (S - 1 - 2 * Bb) * DI * N
+
+
+BWD = _ops.define(
+    "ssm_scan_bwd",
+    "(Tensor u, Tensor delta, Tensor A, Tensor B, Tensor C, Tensor D, "
+    "Tensor dy) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    impl=_scan_bwd, plain=_scan_bwd, fake=_scan_bwd_fake,
+    flops=_scan_bwd_flops)
+
+
 def _setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
 def _backward(ctx, dy, _dh_last):
-    """Autograd of the plain version on the saved inputs."""
-    inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-    with torch.enable_grad():
-        y = ssm_scan_ref(*inputs)[0]
-    grads = torch.autograd.grad(y, inputs, dy)
+    grads = BWD(*ctx.saved_tensors, dy)
     return tuple(g if need else None
                  for g, need in zip(grads, ctx.needs_input_grad))
 
@@ -160,8 +201,8 @@ torch.library.register_autograd(f"{_ops.NAMESPACE}::ssm_scan", _backward,
 
 def selective_scan(u, delta, A, B, C, D) -> torch.Tensor:
     """Differentiable selective scan: y (B,S,DI) in u's dtype; forward
-    through ``ssm_scan``'s op, backward through autograd of the plain
-    version on the saved inputs."""
+    through ``ssm_scan``'s op, backward through ``ssm_scan_bwd`` (autograd
+    of the plain version) on the saved inputs."""
     if _local.any_dtensor(u, delta, A, B, C, D):
         return _local.selective_scan(SCAN, u, delta, A, B, C, D)[0]
     return SCAN(u, delta, A, B, C, D)[0]

@@ -211,7 +211,11 @@ def trace_cell(cfg: ModelConfig, shape_name: str, mesh, knobs: dict, *,
         trees = [(p_specs, tree_shardings(p_specs, rules)),
                  (in_specs, _batch_shardings(rules, in_specs))]
     elif kind == "decode":
-        fn = make_decode_step(cfg, device=dev)
+        # the caches are donated, as the reference's cell donates them
+        # (donate_argnums=(2,)): the step writes its rows into them and
+        # returns them, so the analysis counts them once, as aliased
+        # argument bytes
+        fn = make_decode_step(cfg, device=dev, donate_caches=True)
         p_specs = param_specs(cfg)
         tok = {"x": input_specs(cfg, kind="decode", seq_len=S, batch=B)["inputs"]}
         c_specs = cache_specs(cfg, B, S)

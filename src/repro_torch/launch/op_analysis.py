@@ -81,6 +81,8 @@ _PRODUCTS = {"einsum", "matmul", "linear", "tensordot", "bilinear"}
 _ALLOC_BLOCK = 512          # the CUDA caching allocator's block rounding
 
 _in_propagation = threading.local()
+# the sharding propagator's shape inference on global stand-ins
+_META = "_propagate_tensor_meta_non_cached"
 _in_dtensor = threading.local()
 
 
@@ -99,6 +101,19 @@ class _Propagating:
     def __exit__(self, *exc):
         _in_propagation.depth -= 1
         return self.inner.__exit__(*exc)
+
+
+def _propagating(fn):
+    """``fn``, a sharding propagator's shape inference on global
+    stand-ins, run marked as propagation (``_in_propagation``)."""
+    def wrapped(*args, **kwargs):
+        _in_propagation.depth = getattr(_in_propagation, "depth", 0) + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _in_propagation.depth -= 1
+    wrapped.inner = fn
+    return wrapped
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -275,14 +290,19 @@ class OpAnalysis(TorchDispatchMode):
         return out
 
     def __enter__(self):
-        # the mode is entered again inside its own dispatch; the hook on
-        # the sharding propagator goes in once, at the outermost entry
+        # the mode is entered again inside its own dispatch; the hooks on
+        # the sharding propagator go in once, at the outermost entry: its
+        # lock around shape inference, and the inference itself (torch
+        # releases that build the global stand-ins outside the lock)
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         self._depth = getattr(self, "_depth", 0) + 1
-        lock = ShardingPropagator.__dict__.get("_fake_mode_lock")
-        if self._depth == 1 and lock is not None \
-                and not isinstance(lock, _Propagating):
-            ShardingPropagator._fake_mode_lock = _Propagating(lock)
+        if self._depth == 1:
+            lock = ShardingPropagator.__dict__.get("_fake_mode_lock")
+            if lock is not None and not isinstance(lock, _Propagating):
+                ShardingPropagator._fake_mode_lock = _Propagating(lock)
+            meta = ShardingPropagator.__dict__.get(_META)
+            if meta is not None and not hasattr(meta, "inner"):
+                setattr(ShardingPropagator, _META, _propagating(meta))
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -294,6 +314,9 @@ class OpAnalysis(TorchDispatchMode):
             lock = ShardingPropagator.__dict__.get("_fake_mode_lock")
             if isinstance(lock, _Propagating):
                 ShardingPropagator._fake_mode_lock = lock.inner
+            meta = ShardingPropagator.__dict__.get(_META)
+            if hasattr(meta, "inner"):
+                setattr(ShardingPropagator, _META, meta.inner)
         return out
 
 

@@ -133,20 +133,22 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, hd: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _write_rows(buf: torch.Tensor, new: torch.Tensor, start: int
-                ) -> torch.Tensor:
-    """A copy of ``buf`` with ``new`` written at rows ``start`` of axis 1."""
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, start: int,
+                donate: bool = False) -> torch.Tensor:
+    """``buf`` with ``new`` written at rows ``start`` of axis 1: a copy, or
+    with ``donate`` ``buf`` itself, written in place."""
     if _local.any_dtensor(buf, new):
-        return _write_rows_sharded(buf, new, start)
-    out = buf.clone()
+        return _write_rows_sharded(buf, new, start, donate)
+    out = buf if donate else buf.clone()
     out[:, start:start + new.shape[1]] = new
     return out
 
 
-def _write_rows_sharded(buf, new, start: int):
+def _write_rows_sharded(buf, new, start: int, donate: bool = False):
     """``_write_rows`` on local shards: the cache keeps its placements;
     ``new`` takes them but for its rows, which every rank holds whole; each
-    rank writes the rows that fall in its own span of axis 1."""
+    rank writes the rows that fall in its own span of axis 1, into a copy
+    of its shard or, with ``donate``, into the shard itself."""
     from torch.distributed.tensor import Replicate, Shard
 
     from ..distributed.sharding import addressable_shard_spans
@@ -159,18 +161,19 @@ def _write_rows_sharded(buf, new, start: int):
     (region,) = addressable_shard_spans(mesh, pl, tuple(buf.shape))
     lo, hi = region[1]
     a, b = max(start, lo), min(start + new.shape[1], hi)
-    out = bl.clone()
+    out = bl if donate else bl.clone()
     if a < b:
         out[:, a - lo:b - lo] = nl[:, a - start:b - start]
-    return _local.wrap(out, mesh, pl, tuple(buf.shape))
+    return buf if donate else _local.wrap(out, mesh, pl, tuple(buf.shape))
 
 
 def cache_update_full(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                      pos: int) -> dict:
-    """Insert (B,S_new,KV,hd) at position ``pos``."""
+                      pos: int, donate: bool = False) -> dict:
+    """Insert (B,S_new,KV,hd) at position ``pos``: into copies of the cache,
+    or with ``donate`` into the cache given."""
     pos = int(pos)
-    return {"k": _write_rows(cache["k"], k_new, pos),
-            "v": _write_rows(cache["v"], v_new, pos)}
+    return {"k": _write_rows(cache["k"], k_new, pos, donate),
+            "v": _write_rows(cache["v"], v_new, pos, donate)}
 
 
 def ring_positions(pos, window: int) -> torch.Tensor:
@@ -181,11 +184,12 @@ def ring_positions(pos, window: int) -> torch.Tensor:
 
 
 def cache_update_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                      pos: int) -> dict:
-    """Decode-time single-token ring insert at slot pos % window."""
+                      pos: int, donate: bool = False) -> dict:
+    """Decode-time single-token ring insert at slot pos % window (into
+    copies, or with ``donate`` into the cache given)."""
     slot = int(pos) % cache["k"].shape[1]
-    return {"k": _write_rows(cache["k"], k_new, slot),
-            "v": _write_rows(cache["v"], v_new, slot)}
+    return {"k": _write_rows(cache["k"], k_new, slot, donate),
+            "v": _write_rows(cache["v"], v_new, slot, donate)}
 
 
 def ring_fill_from_prefill(k_full: torch.Tensor, v_full: torch.Tensor,

@@ -530,12 +530,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
 
 
 def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
-                        cfg: ModelConfig):
+                        cfg: ModelConfig, donate: bool = False):
     """One layer, one token. x: (B,1,D). Returns (x, new_cache). Attention
     of both kinds runs through the flash-decode kernel: a full cache with
-    ``pos + 1`` valid rows, a ring with its filled slots. Mamba and RG-LRU
-    layers step their recurrence in plain PyTorch. The residual is
-    constrained as on the sequence path (the reference leaves it to its
+    ``pos + 1`` valid rows, a ring with its filled slots; with ``donate``
+    the new row goes into ``cache`` itself. Mamba and RG-LRU layers step
+    their recurrence in plain PyTorch and return new states. The residual
+    is constrained as on the sequence path (the reference leaves it to its
     partitioner, which keeps it so)."""
     h = L.rms_norm(x, w["norm1"], eps=cfg.norm_eps)
     if kind == "mamba":    # no channel mix: the block is the whole layer
@@ -545,10 +546,10 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
     if kind in ("global", "local"):
         q, k, v = _qkv(h, w["attn"], cfg, kind, pos)
         if kind == "local" and cfg.window:
-            cache = L.cache_update_ring(cache, k, v, pos)
+            cache = L.cache_update_ring(cache, k, v, pos, donate)
             valid = L.ring_valid_len(pos, cache["k"].shape[1])
         else:
-            cache = L.cache_update_full(cache, k, v, pos)
+            cache = L.cache_update_full(cache, k, v, pos, donate)
             valid = pos + 1
         out = flash_decode(q, cache["k"], cache["v"], valid)
         x = shard_act(x + _local.merge_heads(out) @ w["attn"]["wo"],
@@ -562,13 +563,30 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
     return shard_act(x + delta, "residual"), cache
 
 
+def _write_back(dst, src) -> None:
+    """Copies each leaf of ``src`` into the same leaf of ``dst`` (views of
+    the stacked caches) where it is not that view already."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_back(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
+
+
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
-                caches: list[dict], pos: int):
+                caches: list[dict], pos: int, *, donate: bool = False):
     """One decode step. inputs: token ids (B,1), or embeddings (B,1,D) for
     archs without token embeddings; ``pos`` is the global position being
-    written. Returns (logits (B,V), new_caches); the caches given are not
-    written."""
+    written. Returns (logits (B,V), new_caches).
+
+    By default the caches given are not written: the step returns new
+    ones. With ``donate`` the step writes into the caches it was given and
+    returns those very tensors, the counterpart of the reference's
+    ``donate_argnums``: each attention layer writes its new row into its
+    layer's view of the stacked cache, nothing is cloned and nothing is
+    stacked again; the small Mamba and RG-LRU states are computed as
+    before, functionally, and copied into their views."""
     pos = int(pos)
     x = _embed(params, cfg, inputs)
     new_caches = []
@@ -577,11 +595,16 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         per_pos: dict[str, list] = {f"pos{i}": [] for i in range(len(seg.pattern))}
         for r in range(seg.n_repeats):
             for i, kind in enumerate(seg.pattern):
+                view = _select(seg_cache[f"pos{i}"], r)
                 x, c = _apply_block_decode(
-                    kind, _select(seg_params[f"pos{i}"], r), x,
-                    _select(seg_cache[f"pos{i}"], r), pos, cfg)
-                per_pos[f"pos{i}"].append(c)
-        new_caches.append({name: _stack(cs) for name, cs in per_pos.items()})
+                    kind, _select(seg_params[f"pos{i}"], r), x, view, pos,
+                    cfg, donate)
+                if donate:
+                    _write_back(view, c)
+                else:
+                    per_pos[f"pos{i}"].append(c)
+        if not donate:
+            new_caches.append({name: _stack(cs) for name, cs in per_pos.items()})
     x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = shard_act(x @ unembed_weights(params, cfg), "logits")
-    return logits[:, 0], new_caches
+    return logits[:, 0], (caches if donate else new_caches)

@@ -51,15 +51,20 @@ def make_prefill(cfg: ModelConfig, *, cache_len: int | None = None,
     return prefill_fn
 
 
-def make_decode_step(cfg: ModelConfig, *, device=None):
+def make_decode_step(cfg: ModelConfig, *, device=None,
+                     donate_caches: bool = False):
     """Returns serve_step(params, inputs, caches, pos) -> (tokens (B,),
     logits (B,V), new_caches); inputs are token ids (B,1), or embeddings
-    (B,1,D) where ``cfg.embed_inputs`` is false."""
+    (B,1,D) where ``cfg.embed_inputs`` is false. With ``donate_caches`` the
+    step writes into the caches it is given and returns them
+    (``decode_step(donate=True)``), as the reference's dry-run cell donates
+    its caches; serving keeps the default, which never writes a state
+    handed to it (a save may hold it)."""
     dev = resolve_device(device)
 
     def serve_step(params, inputs, caches, pos):
         logits, new_caches = decode_step(params, cfg, _inputs(inputs, dev),
-                                         caches, pos)
+                                         caches, pos, donate=donate_caches)
         return sample_greedy(logits), logits, new_caches
     return serve_step
 

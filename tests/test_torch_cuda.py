@@ -1145,6 +1145,107 @@ def test_chunk_digest_refuses_a_misaligned_view(cuda):
         chunk_digests([x], 64)
 
 
+# the chunk-count sweep: one CTA of 32 lanes, one short of it, one full, one
+# lane into a second CTA, and spot_loop's urgent save (4,053 chunks)
+DIGEST_SWEEP = (1, 31, 32, 33, 4053)
+
+
+@pytest.mark.parametrize("n_chunks", DIGEST_SWEEP)
+def test_chunk_digest_kernel_chunk_count_sweep(cuda, n_chunks):
+    from repro_torch.kernels.chunk_digest import (chunk_digests,
+                                                  chunk_digests_ref)
+    mib = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(n_chunks)
+    # the last chunk short by a ragged tail
+    x = torch.randint(-128, 127, (n_chunks * mib - 1000 + 3,),
+                      dtype=torch.int8, generator=g, device=cuda)
+    got = chunk_digests([x], mib).result()
+    assert len(got[0]) == n_chunks
+    assert got == [chunk_digests_ref(x.cpu(), mib)]
+
+
+@pytest.mark.parametrize("chunk", [1 << 20, 4096, 64])
+def test_chunk_digest_kernel_on_a_leaf_4_but_not_16_byte_aligned(cuda, chunk):
+    """The kernel copies a chunk that does not start on a 16-byte boundary
+    4 bytes at a time; the digests stay hashlib's and zlib's."""
+    from repro_torch.kernels.chunk_digest import (chunk_digests,
+                                                  chunk_digests_ref)
+    base = payload(torch.int32, 3 * (1 << 18) + 77).to(cuda)
+    x = base[1:]
+    assert x.data_ptr() % 16 == 4
+    y = base[3:]                      # 12 bytes past a 16-byte boundary
+    got = chunk_digests([x, y], chunk).result()
+    assert got == [chunk_digests_ref(x.cpu(), chunk),
+                   chunk_digests_ref(y.cpu(), chunk)]
+
+
+def test_donating_decode_step_equals_the_functional_one_on_the_card(cuda):
+    """gemma3-1b's width (one period: 5 local layers, a ring of 512, and a
+    global one), caches of seeded values, steps across the ring's wrap:
+    logits and tokens bit for bit alike, the donated caches written in
+    place and bit for bit the functional step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import make_decode_step
+    cfg = get_config("gemma3_1b").scaled(n_layers=6)
+    params = init_params(cfg, seed=3, device=cuda)
+    caches = init_cache(cfg, 2, 1024, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for t in ser.flatten_state(caches).values():
+        t.copy_(torch.randn(t.shape, generator=g, device=cuda) * 0.5)
+    donated = ser.unflatten_like(caches, {n: t.clone() for n, t in
+                                          ser.flatten_state(caches).items()})
+    functional = make_decode_step(cfg, device=cuda)
+    donating = make_decode_step(cfg, device=cuda, donate_caches=True)
+    tok_f = tok_d = torch.randint(0, cfg.vocab_size, (2,), generator=g,
+                                  device=cuda)
+    for pos in range(505, 517):        # the ring of 512 wraps at 512
+        given = list(ser.flatten_state(donated).values())
+        tok_f, l_f, caches = functional(params, tok_f[:, None], caches, pos)
+        tok_d, l_d, out = donating(params, tok_d[:, None], donated, pos)
+        assert torch.equal(l_f, l_d) and torch.equal(tok_f, tok_d), pos
+        assert out is donated and all(
+            a is b for a, b in zip(ser.flatten_state(out).values(), given))
+    for a, b in zip(ser.flatten_state(caches).values(),
+                    ser.flatten_state(donated).values()):
+        assert torch.equal(a, b)
+
+
+def _plain_grads(ref, xs, dy):
+    inputs = [t.detach().requires_grad_(True) for t in xs]
+    return torch.autograd.grad(ref(*inputs)[0], inputs, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_backward_ops_on_the_card_equal_plain_autograd(cuda, dtype):
+    """The two scans' backward ops (autograd of the plain versions, no
+    kernel) give on the card what autograd over the plain versions gives,
+    bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    Bb, S, DI, N = 2, 64, 256, _lib.SSM_STATES
+    xs = [torch.randn((Bb, S, DI), generator=g, device=cuda).to(dtype),
+          (torch.rand((Bb, S, DI), generator=g, device=cuda) * 0.1).to(dtype),
+          -torch.rand((DI, N), generator=g, device=cuda) - 0.5,
+          torch.randn((Bb, S, N), generator=g, device=cuda),
+          torch.randn((Bb, S, N), generator=g, device=cuda),
+          torch.randn((DI,), generator=g, device=cuda)]
+    leaves = [t.clone().requires_grad_(True) for t in xs]
+    y = selective_scan(*leaves)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(y.dtype)
+    got = torch.autograd.grad(y, leaves, dy)
+    for a, b in zip(got, _plain_grads(ssm_scan_ref, xs, dy)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    from repro_torch.kernels.rglru_scan import lru_scan
+    ab = [torch.rand((Bb, S, DI), generator=g, device=cuda).to(dtype),
+          torch.randn((Bb, S, DI), generator=g, device=cuda).to(dtype)]
+    leaves = [t.clone().requires_grad_(True) for t in ab]
+    h = lru_scan(*leaves)
+    dh = torch.randn(h.shape, generator=g, device=cuda).to(h.dtype)
+    got = torch.autograd.grad(h, leaves, dh)
+    for a, b in zip(got, _plain_grads(rglru_scan_ref, ab, dh)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def _card_state(cuda, seed=0):
     g = torch.Generator().manual_seed(seed)
     return {"params": {"w": torch.randn(1536, 1024, generator=g).to(

@@ -28,7 +28,11 @@ sizes.
   reference's count before the comparison. ``ARCH_DEFAULTS`` and
   ``_knobs`` equal the reference's for every arch, kind and flag.
 * Memory, the CLI's keys, and each kernel op's fake implementation
-  against its CPU implementation.
+  against its CPU implementation. A decode cell donates its caches, as the
+  reference's does: its alias bytes are the caches' and equal the
+  reference's (``_mem_dict``) on (1, 1) and (2, 4), and a long cell holds
+  one copy of them. A train cell of the scan archs runs one backward op a
+  scan layer.
 """
 
 import json
@@ -84,7 +88,8 @@ REFERENCE = textwrap.dedent("""
     cells, knobs, archs, meshes, flag_sets, flags = (json.loads(a)
                                                      for a in sys.argv[1:7])
     SHAPES.update(cells)
-    out = {"flops": {}, "knobs": {}, "defaults": D.ARCH_DEFAULTS}
+    out = {"flops": {}, "memory": {}, "knobs": {},
+           "defaults": D.ARCH_DEFAULTS}
     for arch in archs:
         for shape in cells:
             for m in meshes:
@@ -92,8 +97,9 @@ REFERENCE = textwrap.dedent("""
                                  devices=jax.devices()[:m[0] * m[1]])
                 _, compiled = D.lower_cell(get_smoke_config(arch), shape,
                                            mesh, knobs)
-                out["flops"][f"{arch}/{shape}/{m[0]}x{m[1]}"] = \\
-                    analyze(compiled.as_text())["flops"]
+                key = f"{arch}/{shape}/{m[0]}x{m[1]}"
+                out["flops"][key] = analyze(compiled.as_text())["flops"]
+                out["memory"][key] = D._mem_dict(compiled)
     for arch in ARCH_IDS:
         for kind in ("train", "prefill", "decode"):
             for name, fs in flag_sets.items():
@@ -154,6 +160,8 @@ GLOO = textwrap.dedent("""
 """)
 GLOO_CELL = {"gloo_train": {"seq_len": 32, "global_batch": 8,
                             "kind": "train"}}
+# a decode cell whose caches outweigh the smoke weights (port only)
+LONG_CELL = {"t_long": {"seq_len": 2048, "global_batch": 8, "kind": "decode"}}
 GLOO_KNOBS = dict(KNOBS, remat="dots", microbatches=2)
 
 
@@ -175,7 +183,8 @@ def no_world_left():
 
 @pytest.fixture(scope="module")
 def cells():
-    added = {k: v for k, v in {**CELLS, **GLOO_CELL}.items() if k not in SHAPES}
+    added = {k: v for k, v in {**CELLS, **GLOO_CELL, **LONG_CELL}.items()
+             if k not in SHAPES}
     SHAPES.update(added)
     yield
     for k in added:
@@ -472,6 +481,89 @@ def test_argument_bytes_are_the_local_shards(cells):
     assert r["memory"]["live_bytes"] >= want
 
 
+def _cache_bytes(cfg, batch, seq_len, rules=None) -> int:
+    """The caches' bytes on one device: the whole cache, or this rank's
+    shards under ``rules``."""
+    from repro_torch.models.model import cache_specs
+    specs = cache_specs(cfg, batch, seq_len)
+    if rules is None:
+        return sum(t.numel() * t.element_size()
+                   for t in ser.flatten_state(specs).values())
+    shs = ser.flatten_state(shd.cache_shardings(specs, rules))
+    total = 0
+    for n, t in ser.flatten_state(specs).items():
+        (region,) = shd.addressable_shard_spans(shs[n].mesh, shs[n].placements,
+                                                t.shape)
+        total += math.prod(b - a for a, b in region) * t.element_size()
+    return total
+
+
+@pytest.mark.parametrize("mesh", PARITY_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
+def test_decode_cell_aliases_its_caches_as_the_reference_does(cells, reference,
+                                                              arch, mesh):
+    """The caches are donated: the step returns the storages it took, so
+    the analysis counts them once, as aliased argument bytes, equal to the
+    reference's (donate_argnums=(2,)) and to this device's cache shards."""
+    port_mesh = _fake_mesh(mesh)
+    cfg = get_smoke_config(arch)
+    r = D.trace_cell(cfg, "t_decode", port_mesh, KNOBS, device="cpu")
+    want = reference()["memory"][f"{arch}/t_decode/{mesh[0]}x{mesh[1]}"]
+    assert r["memory"]["alias_size_in_bytes"] == want["alias_size_in_bytes"]
+    rules = D._rules(port_mesh, KNOBS)
+    assert r["memory"]["alias_size_in_bytes"] == _cache_bytes(
+        cfg, CELLS["t_decode"]["global_batch"], CELLS["t_decode"]["seq_len"],
+        rules)
+
+
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
+def test_a_long_decode_cell_holds_one_copy_of_its_caches(cells, arch):
+    """At 2048 positions the caches outweigh the smoke weights: the cell
+    aliases all of them, and what it holds beyond its arguments (the new
+    rows, activations, logits) stays under one cache, where the functional
+    step held a copy of every layer's cache and then their stack."""
+    mesh = _fake_mesh((1, 1))
+    cfg = get_smoke_config(arch)
+    sh = LONG_CELL["t_long"]
+    cache = _cache_bytes(cfg, sh["global_batch"], sh["seq_len"])
+    from repro_torch.models.model import param_specs
+    weights = sum(t.numel() * t.element_size()
+                  for t in ser.flatten_state(param_specs(cfg)).values())
+    assert cache > weights
+    m = D.trace_cell(cfg, "t_long", mesh, KNOBS, device="cpu")["memory"]
+    assert m["alias_size_in_bytes"] == cache
+    assert m["live_bytes"] - m["argument_size_in_bytes"] < cache
+
+
+class _OpCalls(OA.OpAnalysis):
+    """The op analysis, also counting the kernel ops it sees."""
+    calls: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "repro_torch":
+            name = func._opname
+            _OpCalls.calls[name] = _OpCalls.calls.get(name, 0) + 1
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+@pytest.mark.parametrize("arch,kind,op", [
+    ("falcon_mamba_7b", "mamba", "ssm_scan_bwd"),
+    ("recurrentgemma_2b", "rglru", "rglru_scan_bwd")])
+def test_a_scan_train_cell_runs_one_backward_op_a_layer(cells, monkeypatch,
+                                                        arch, kind, op):
+    from repro_torch.models.transformer import plan_segments
+    cfg = get_smoke_config(arch)
+    layers = sum(seg.n_repeats * seg.pattern.count(kind)
+                 for seg in plan_segments(cfg))
+    assert layers > 0
+    monkeypatch.setattr(D, "OpAnalysis", _OpCalls)
+    monkeypatch.setattr(_OpCalls, "calls", {})
+    r = D.trace_cell(cfg, "t_train", _fake_mesh((1, 1)), KNOBS, device="cuda")
+    assert _OpCalls.calls[op] == layers
+    assert _OpCalls.calls[op.replace("_bwd", "")] == layers
+    assert r["flops"] > 0
+
+
 # keys the reference's result has that the port's does not, and the
 # other way round
 NOT_PORTED = {"per_device": {"xla_raw_flops", "xla_raw_bytes"},
@@ -521,6 +613,11 @@ def _op_cases():
         "ssm_scan": ((((2, 8, 6), f32), ((2, 8, 6), f32), ((6, 4), f32),
                       ((2, 8, 4), f32), ((2, 8, 4), f32), ((6,), f32)), ()),
         "rglru_scan": ((((2, 8, 6), bf16), ((2, 8, 6), bf16)), ()),
+        "ssm_scan_bwd": ((((2, 8, 6), f32), ((2, 8, 6), f32), ((6, 4), f32),
+                          ((2, 8, 4), f32), ((2, 8, 4), f32), ((6,), f32),
+                          ((2, 8, 6), f32)), ()),
+        "rglru_scan_bwd": ((((2, 8, 6), bf16), ((2, 8, 6), bf16),
+                            ((2, 8, 6), bf16)), ()),
     }
 
 
