@@ -80,6 +80,11 @@ deepseek-moe-16b's width, all with seeded weights:
                   eviction (loads it without nvcc; exactly one eviction
                   and one restore, no lost step, urgent saves within
                   20 s, the final loss bit for bit the first run's)
+  examples        examples/torch_quickstart.py and torch_serve_demo.py on
+                  the card, started together, each a process of its own:
+                  each exits 0 having passed its check (the evicted run's
+                  final loss bit for bit an uninterrupted run's; the tokens
+                  after a mid-generation restore the same)
   serve_gemma3,   batch 4, a 1984-token prompt, 64 greedy tokens through
   serve_recurrentgemma,  serve.make_prefill / make_decode_step (and
   serve_phi3,     serve.generate): prefill and decode tokens/s; a
@@ -101,6 +106,15 @@ deepseek-moe-16b's width, all with seeded weights:
   embeds_musicgen musicgen-medium from seeded frame embeddings: prefill,
                   15 decode steps fed the next frames, float32 decode
                   logits against teacher forcing
+
+The port's lock-order witness (``repro_torch.analysis.lock_witness``) is
+installed before the port's first import and watches every lock the port
+creates through every in-process phase (not the subprocesses): a
+``{"lock_witness": {"sites", "edges", "inversions"}}`` line precedes the
+kernels line, and any inversion fails the run. ``python3 chip_smoke.py
+--witness-ab [ORDER]`` measures what it costs instead: spot_loop_gemma3's
+urgent saves and serve_gemma3, each arm a process of its own with the
+witness on or off, in ORDER (by default ``on,off,off,on``).
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
@@ -3038,6 +3052,153 @@ def phase_pod_restore(cfg, dev, workdir, launches) -> dict:
     return res
 
 
+# the examples phase's scripts and their arguments: the quickstart cut to
+# 60 steps with an eviction every 400 virtual seconds (a periodic save, an
+# eviction, a restore in its 600; by default 240 steps, two evictions)
+EXAMPLE_SCRIPTS = {"torch_quickstart.py": ["--steps", "60",
+                                           "--evict-every", "400"],
+                   "torch_serve_demo.py": []}
+EXAMPLES_TIMEOUT_S = 180       # the examples phase's limit (its aim: 45 s)
+
+
+def phase_examples(workdir) -> dict:
+    """The user-facing examples on the card, each a process of its own, all
+    started together (the kernel library loaded from this run's build):
+    ``examples/torch_quickstart.py`` (an evicted run, its final loss bit
+    for bit an uninterrupted run's) and
+    ``examples/torch_serve_demo.py`` (a mid-generation save restored and
+    decoded on to the same tokens). Each must exit 0 with ``OK`` as its
+    last line; each one's wall from the common start."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = workdir / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, args in EXAMPLE_SCRIPTS.items():
+        with open(logs / f"{name}.out", "w") as out, \
+                open(logs / f"{name}.err", "w") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / name), *args],
+                stdout=out, stderr=err, env=env, cwd=logs)
+    walls: dict[str, float] = {}
+    try:
+        while len(walls) < len(procs):
+            for name, p in procs.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S:
+                raise PhaseError(f"examples: past the {EXAMPLES_TIMEOUT_S} s "
+                                 f"limit, done: {sorted(walls)}")
+            time.sleep(0.05)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res: dict = {"wall_s": time.perf_counter() - t0}
+    for name, p in procs.items():
+        lines = (logs / f"{name}.out").read_text().strip().splitlines()
+        if p.returncode != 0 or not lines or lines[-1] != "OK":
+            print((logs / f"{name}.err").read_text()[-4000:], file=sys.stderr)
+            raise PhaseError(f"{name} exited {p.returncode}")
+        res[name] = {"wall_s": walls[name], "output": lines[-14:]}
+    return res
+
+
+def witness_cost(n: int = 200_000) -> dict:
+    """Nanoseconds of one uncontended acquire and release of a lock, plain
+    and wrapped by the lock witness (a probe witness of its own)."""
+    import threading
+    from repro_torch.analysis import lock_witness
+    wrapped = lock_witness._WitnessLock(threading.Lock(), "probe",
+                                        lock_witness.LockWitness())
+    out = {}
+    for name, lock in (("plain_ns", threading.Lock()), ("wrapped_ns", wrapped)):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with lock:
+                pass
+        out[name] = (time.perf_counter() - t0) / n * 1e9
+    return out
+
+
+def witness_arm(on: bool) -> dict:
+    """One arm of ``--witness-ab``, a process of its own: the port's lock
+    witness installed before the port's first import (``on``) or not at
+    all, then ``spot_loop_gemma3`` and ``serve_gemma3`` as ``main`` runs
+    them. Returns the urgent saves' walls and the serve timings."""
+    import torch
+    if on:
+        from repro_torch.analysis.lock_witness import LockWitness
+        witness = LockWitness()
+        witness.install()
+    from repro_torch.configs import get_config
+    from repro_torch.device import set_deterministic
+    from repro_torch.kernels import _lib
+    set_deterministic()
+    dev = torch.device("cuda", 0)
+    _lib.library()
+    launches: dict[str, dict] = {}
+    out: dict = {"witness": on}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="witness_arm_") as tmp:
+        t0 = time.perf_counter()
+        loop = phase_spot_loop(
+            get_config("gemma3_1b").scaled(n_layers=LOOP_LAYERS), dev,
+            Path(tmp) / "gemma3", STEPS, launches, name="spot_loop_gemma3",
+            seq_len=LOOP_S)
+        out["spot_loop_gemma3_s"] = time.perf_counter() - t0
+        out["urgent_saves"] = [{"wall_s": u["wall_s"],
+                                "chunks_s": u["legs"]["chunks_s"]}
+                               for u in loop["evicted"]["urgent_saves"]]
+        t0 = time.perf_counter()
+        serve = phase_serve("gemma3_1b", dev, Path(tmp), nvidia_smi(),
+                            launches)
+        out["serve_gemma3_s"] = time.perf_counter() - t0
+        out.update({k: serve[k] for k in ("prefill_s", "decode_s", "save_s",
+                                          "restore_s")})
+    if on:
+        witness.uninstall()
+        out["lock_witness"] = witness.report()
+    return out
+
+
+def witness_ab(order: str = "on,off,off,on") -> int:
+    """``--witness-ab [ORDER]``: the witness's cost where the port takes its
+    locks most, an urgent save (and a serve phase beside it). Arms with the
+    witness on and off, each a process of this script, in ``order``, after
+    one build of the kernel library that they load. Prints each arm's
+    line, then ``{"witness_ab": ...}`` (also in
+    ``chiprun_out/witness_ab.json``)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib
+    card = nvidia_smi()
+    print(card, flush=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    _lib.library()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    arms = []
+    for on in (arm == "on" for arm in order.split(",")):
+        p = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--witness-arm",
+             "on" if on else "off"], env=env, capture_output=True, text=True,
+            timeout=300)
+        if p.returncode != 0:
+            print(p.stderr[-4000:], file=sys.stderr)
+            return 1
+        arms.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        print(json.dumps(arms[-1]), flush=True)
+    res = {"card": card, "order": order, "arms": arms}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "witness_ab.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps({"witness_ab": res}))
+    return 0
+
+
 def ptxas_summary(report: dict) -> dict:
     """``ptxas -v``'s registers and spill bytes per kernel instance, under
     short names: kernel<dtype,template ints>."""
@@ -3134,6 +3295,12 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     try:
+        # the port's lock-order witness, installed before the port's first
+        # import so that module-level locks are wrapped too, and kept through
+        # every in-process phase
+        from repro_torch.analysis.lock_witness import LockWitness
+        witness = LockWitness()
+        witness.install()
         from repro_torch.configs import get_config
         from repro_torch.device import set_deterministic
         from repro_torch.kernels import _lib
@@ -3188,6 +3355,7 @@ def main() -> int:
                 workdir / "gemma3", STEPS, launches, name="spot_loop_gemma3",
                 seq_len=LOOP_S),
             "launch_train": lambda: phase_launch_train(dev, workdir, launches),
+            "examples": lambda: phase_examples(workdir),
             "serve_gemma3": lambda: phase_serve("gemma3_1b", dev, workdir,
                                                 card, launches),
             "serve_recurrentgemma": lambda: phase_serve(
@@ -3236,6 +3404,14 @@ def main() -> int:
     print(json.dumps({"phase_seconds": seconds,
                       "phases_total_s": results["phases_total_s"],
                       "build_s": _lib.build_seconds()}), flush=True)
+    witness.uninstall()
+    results["lock_witness"] = witness.report()
+    results["lock_witness_cost"] = witness_cost()
+    print(json.dumps({"lock_witness_cost": results["lock_witness_cost"]}),
+          flush=True)
+    print(json.dumps({"lock_witness": results["lock_witness"]}), flush=True)
+    if results["lock_witness"]["inversions"]:
+        failed.append("lock_witness")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(
@@ -3278,4 +3454,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-worker"]:
         print(json.dumps(pod_worker(json.loads(sys.argv[2])), default=float))
         sys.exit(0)
+    if sys.argv[1:2] == ["--witness-arm"]:
+        print(json.dumps(witness_arm(sys.argv[2] == "on"), default=float))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--witness-ab"]:
+        sys.exit(witness_ab(*sys.argv[2:3]))
     sys.exit(main())

@@ -172,7 +172,9 @@ class _Staged:
         full-leaf stage, so the leaf falls back to the dense path — the
         fingerprints are still committed, so the next low-churn save deltas
         normally."""
-        diff = self.diff.numpy()
+        # the landed diff vector is read here for the dirty set; no leaf
+        # is built from it
+        diff = self.diff.numpy()  # spotlint: ignore[SPOT021]
         dirty = set(np.nonzero(diff)[0].tolist())
         ent = self.ent
         if len(dirty) > self.tracker.dense_fallback_frac * len(ent.refs):
@@ -223,7 +225,8 @@ class _Staged:
         data = None
         moved = 0
         if self._gathered is not None:
-            rows = self._gathered.numpy()
+            # a HostCopy of a fresh gather: the rows are its own buffer
+            rows = self._gathered.numpy()  # spotlint: ignore[SPOT021]
             moved = rows.nbytes
             data = rows[:self._dirty.size]
         dirty_ids = tuple(int(i) for i in self._dirty)

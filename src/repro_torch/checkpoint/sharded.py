@@ -225,7 +225,8 @@ def _quantize_on_device(everything: dict, named: dict,
     if multi:
         dist.all_reduce(maxima, op=dist.ReduceOp.MAX, group=group)
     out: dict[str, tuple[HostCopy, float]] = {}
-    for (name, t), am in zip(sel, maxima.numpy()):
+    # each element becomes a scale through int8_scale_inv; no buffer is kept
+    for (name, t), am in zip(sel, maxima.numpy()):  # spotlint: ignore[SPOT021]
         if name in named:
             scale, inv = ser.int8_scale_inv(am)
             out[name] = (HostCopy(quantize_with_inv(t, inv), staged=True),
@@ -370,12 +371,14 @@ def extract_snapshot(state, *, step: int, mesh_info: dict | None = None,
             staged[name] = st.dense_copy       # high-churn dense fallback
         if name in prequant:
             cp, scale = prequant[name]
-            arr = cp.numpy()
+            # `cp` is a HostCopy: the landed bytes are its own buffer
+            arr = cp.numpy()  # spotlint: ignore[SPOT021]
             lp = LeafPieces(tuple(arr.shape), ser.dtype_to_name(leaf.dtype),
                             [(full_idx(arr.shape), arr)], prequant="int8",
                             scale=scale)
         elif name in staged:
-            arr = staged[name].numpy()
+            # every `staged` value is a HostCopy (its own buffer)
+            arr = staged[name].numpy()  # spotlint: ignore[SPOT021]
             lp = LeafPieces(tuple(arr.shape), ser.dtype_to_name(leaf.dtype),
                             [(full_idx(arr.shape), arr)])
         else:
@@ -519,7 +522,9 @@ def write_snapshot_delta(
                                     arr, index, pin, dirty_dirs)
                     jobs.append((name, pi, idx, lp, arr, fut))
                     continue
-                arr = np.asarray(arr)
+                # snapshot pieces were frozen at extract time (to_host,
+                # HostCopy); this normalizes scalars and 0-d values
+                arr = np.asarray(arr)  # spotlint: ignore[SPOT021]
                 codec = _piece_codec(name, lp, arr, compress=compress,
                                      quantize_moments=quantize_moments)
                 fut = ex.submit(_delta_encode_piece, pool, (name, pi), arr,
@@ -1075,7 +1080,8 @@ def _host_leaf_value(leaf, arr: np.ndarray, dtype_name: str):
     arrays cast to the template dtype)."""
     if _is_py_scalar(leaf):
         return type(leaf)(arr.reshape(())[()])
-    want = np.asarray(leaf).dtype
+    # the template's dtype alone is read; no buffer is kept
+    want = np.asarray(leaf).dtype  # spotlint: ignore[SPOT021]
     if dtype_name == want.name:
         return arr if arr.dtype == want else arr.view(want)   # same bits
     return arr.astype(want, copy=False)
@@ -1090,7 +1096,8 @@ def _pinned_staging(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     host tensor of its logical dtype."""
     t = torch.empty(arr.shape, dtype=ser.torch_dtype(dtype_name),
                     pin_memory=True)
-    ser.tensor_to_numpy(t)[...] = arr
+    # the view fills the fresh pinned tensor and is dropped at once
+    ser.tensor_to_numpy(t)[...] = arr  # spotlint: ignore[SPOT021]
     return t
 
 
@@ -1098,7 +1105,9 @@ def _tensor_from_payload(arr: np.ndarray, dtype_name: str,
                          device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return _pinned_staging(arr, dtype_name).to(device, non_blocking=True)
-    return ser.numpy_to_tensor(arr, dtype_name).to(device)
+    # `arr` is decoded for this restore alone (numpy_to_tensor copies a
+    # read-only mmap view), so the CPU leaf may own its memory
+    return ser.numpy_to_tensor(arr, dtype_name).to(device)  # spotlint: ignore[SPOT021]
 
 
 def restore_to_template(reader: CheckpointReader, template) -> Any:

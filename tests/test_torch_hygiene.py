@@ -38,7 +38,9 @@ def imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py"))
+    + [ROOT / "examples" / "decode_step_time.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     assert not imported_roots(path) & set(FORBIDDEN)
@@ -55,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint.peer_exchange, repro_torch.core.fleet, "
             "repro_torch.core.elastic, repro_torch.models.ssm, "
             "repro_torch.distributed, repro_torch.distributed.multihost, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.analysis.spotlint, "
+            "repro_torch.analysis.lock_witness; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -9,9 +9,9 @@ activates its own ``FaultPlan``, built the same way. The read-through,
 warm-prefetch and seeding cases run both packages on the same state and
 compare the restored bits and the peer counters.
 
-Not twinned here: the spotlint lane-discipline cases (they need the port's
-own copy of the analyzer); the multihost restore barrier's twins are in
-``tests/test_torch_multihost.py``.
+Twinned elsewhere: the spotlint lane-discipline cases, with the port's own
+analyzer, in ``tests/test_torch_spotlint.py``; the multihost restore
+barrier's in ``tests/test_torch_multihost.py``.
 """
 
 from __future__ import annotations
