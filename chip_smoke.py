@@ -114,7 +114,9 @@ creates through every in-process phase (not the subprocesses): a
 kernels line, and any inversion fails the run. ``python3 chip_smoke.py
 --witness-ab [ORDER]`` measures what it costs instead: spot_loop_gemma3's
 urgent saves and serve_gemma3, each arm a process of its own with the
-witness on or off, in ORDER (by default ``on,off,off,on``).
+witness on or off, in ORDER (by default ``on,off,off,on``). The
+``lock_witness_cost`` line holds an acquire's cost, uncontended and with
+32 threads on one lock (each lock's hold time per acquire).
 
 Launch counts are reset just before each main-path run and read just after
 it; every kernel must have launched on the main path. Every bf16 run's
@@ -3105,20 +3107,87 @@ def phase_examples(workdir) -> dict:
     return res
 
 
-def witness_cost(n: int = 200_000) -> dict:
+class _HeldClock:
+    """A real lock that adds up the seconds it is held, from its acquire's
+    return to its release: the stand-in behind a plain or a wrapped lock
+    in ``witness_cost``'s contended case."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self.held_s = 0.0
+        self.acquires = 0
+        self._t = 0.0
+
+    def acquire(self, *a, **kw):
+        got = self._lock.acquire(*a, **kw)
+        if got:
+            self._t = time.perf_counter()
+        return got
+
+    def release(self):
+        self.held_s += time.perf_counter() - self._t
+        self.acquires += 1
+        self._lock.release()
+
+    def locked(self):
+        return self._lock.locked()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+
+def witness_cost(n: int = 200_000, per_thread: int = 500) -> dict:
     """Nanoseconds of one uncontended acquire and release of a lock, plain
-    and wrapped by the lock witness (a probe witness of its own)."""
+    and wrapped by the lock witness (a probe witness of its own); then the
+    contended case: as many threads as the urgent save writes on
+    (``URGENT_IO_THREADS``) each take one lock ``per_thread`` times,
+    between GIL-free work (a CRC-32 of 64 KiB, as a write is between its
+    locks), plain and wrapped: the lock's mean hold time per acquire and
+    the wall seconds of all of them."""
     import threading
+    import zlib
     from repro_torch.analysis import lock_witness
+    from repro_torch.checkpoint.chunkstore import URGENT_IO_THREADS
     wrapped = lock_witness._WitnessLock(threading.Lock(), "probe",
                                         lock_witness.LockWitness())
-    out = {}
+    out: dict = {}
     for name, lock in (("plain_ns", threading.Lock()), ("wrapped_ns", wrapped)):
         t0 = time.perf_counter()
         for _ in range(n):
             with lock:
                 pass
         out[name] = (time.perf_counter() - t0) / n * 1e9
+    buf = bytes(64 << 10)
+    contended: dict = {"threads": URGENT_IO_THREADS, "per_thread": per_thread}
+    for name in ("plain", "wrapped"):
+        clock = _HeldClock()
+        lock = clock if name == "plain" else lock_witness._WitnessLock(
+            clock, "probe", lock_witness.LockWitness())
+        counts = [0]
+
+        def work():
+            for _ in range(per_thread):
+                zlib.crc32(buf)
+                with lock:
+                    counts[0] += 1
+        threads = [threading.Thread(target=work)
+                   for _ in range(URGENT_IO_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        contended[name] = {"wall_s": time.perf_counter() - t0,
+                           "hold_ns": clock.held_s / clock.acquires * 1e9,
+                           "acquires": clock.acquires}
+        if counts[0] != clock.acquires:
+            raise RuntimeError(f"witness_cost: {counts[0]} increments, "
+                               f"{clock.acquires} acquires")
+    out["contended"] = contended
     return out
 
 

@@ -45,13 +45,13 @@ import traceback
 import torch
 
 from ..configs import ARCH_IDS, SHAPES, cell_is_runnable, get_config, resolve
-from ..distributed.sharding import (Sharding, ShardingRules, cache_shardings,
-                                    from_local, placements, tree_shardings,
-                                    use_sharding_rules)
+from ..distributed.sharding import (Sharding, ShardingRules, axis_size,
+                                    cache_shardings, from_local, placements,
+                                    tree_shardings, use_sharding_rules)
 from ..models.config import ModelConfig
 from ..models.model import cache_specs, input_specs, param_specs
 from ..optim import AdamWConfig
-from .mesh import fake_world, make_production_mesh, mesh_info
+from .mesh import fake_world, make_mesh, make_production_mesh, mesh_info
 from .op_analysis import OpAnalysis
 from .roofline import model_flops, roofline_terms
 
@@ -100,7 +100,18 @@ def _knobs(arch: str, args, kind: str = "train") -> dict:
     return k
 
 
-def _rules(mesh, knobs) -> ShardingRules:
+def _rules(mesh, knobs, batches=()) -> ShardingRules:
+    """The cell's sharding rules, on the mesh its tensors are traced on.
+    A mesh with a ``pod`` axis is traced without its pod dim: where each of
+    the cell's ``batches`` (its global and micro batch) divides the pod and
+    data axes together, or neither, those two are one mesh dim
+    (``flat_data_mesh``); where each divides the data axes alone, or
+    neither, each pod is a replica and this rank's pod is traced
+    (``pod_mesh``): a batch of 32 on (2, 32) pod/data ranks goes one
+    sequence a rank in each pod, where the reference's rule would
+    replicate it. DTensor's op strategies take two mesh dims that shard
+    one tensor dim for two sharding decisions, and under sequence
+    parallelism they gathered the MLP's activations over both."""
     names = tuple(mesh.mesh_dim_names)
     if knobs.get("pure_fsdp"):
         # full-mesh data parallelism: every axis carries batch; weights are
@@ -108,9 +119,65 @@ def _rules(mesh, knobs) -> ShardingRules:
         data_axes = names
     else:
         data_axes = ("pod", "data") if "pod" in names else ("data",)
+    if "pod" in names:
+        data_axes = tuple(a for a in data_axes if a != "pod")
+        pod = axis_size(mesh, "pod")
+        data = 1
+        for a in data_axes:
+            data *= axis_size(mesh, a)
+        whole = {b % (pod * data) == 0 for b in batches if b % data == 0}
+        if whole == {False}:
+            mesh = pod_mesh(mesh)
+        elif whole == {True, False}:
+            raise ValueError(
+                f"batches {tuple(batches)} split the {pod} pods unlike: some "
+                f"divide the {pod * data} pod and data ranks, some only the "
+                f"{data} ranks of a pod")
+        else:
+            mesh = flat_data_mesh(mesh)
     return ShardingRules(mesh, data_axes=data_axes, fsdp=knobs["fsdp"],
                          seq_parallel=knobs["seq_parallel"],
                          pure_fsdp=knobs.get("pure_fsdp", False))
+
+
+def fit_microbatches(rules: ShardingRules, batch: int, n: int) -> int:
+    """The most microbatches, at most ``n``, that split ``batch`` into
+    microbatches sharded like the batch: 256 sequences on the 64 data
+    ranks of the multi-pod mesh take 4 microbatches of 64 where the
+    reference's 32 data ranks take 8 of 32 (each rank accumulates the
+    same one sequence a microbatch)."""
+    whole = rules.dp_axes_for(batch)
+    for m in range(n, 1, -1):
+        if batch % m == 0 and rules.dp_axes_for(batch // m) == whole:
+            return m
+    return 1
+
+
+def pod_mesh(mesh):
+    """The pod of ``mesh`` that holds this rank, without the ``pod`` dim."""
+    names = list(mesh.mesh_dim_names)
+    i = names.index("pod")
+    coord = mesh.get_coordinate()
+    ranks = mesh.mesh.select(i, coord[i])
+    del names[i]
+    return make_mesh(tuple(ranks.shape), names,
+                     devices=ranks.flatten().tolist(),
+                     device_type=mesh.device_type)
+
+
+def flat_data_mesh(mesh):
+    """``mesh`` with its ``pod`` and ``data`` dims merged into one ``data``
+    dim, over the same ranks in the same (row-major) order: a dim sharded
+    over ("pod", "data") is split alike on both."""
+    names = list(mesh.mesh_dim_names)
+    i = names.index("pod")
+    if names[i + 1] != "data":
+        raise ValueError(f"pod and data are not adjacent in {names}")
+    shape = [int(s) for s in mesh.shape]
+    shape[i:i + 2] = [shape[i] * shape[i + 1]]
+    del names[i]
+    return make_mesh(shape, names, devices=mesh.mesh.flatten().tolist(),
+                     device_type=mesh.device_type)
 
 
 def _batch_shardings(rules, specs) -> dict:
@@ -184,7 +251,8 @@ def trace_cell(cfg: ModelConfig, shape_name: str, mesh, knobs: dict, *,
     from ..train.train_step import init_train_state, make_train_step
     sh = SHAPES[shape_name]
     kind, S, B = sh["kind"], sh["seq_len"], sh["global_batch"]
-    rules = _rules(mesh, knobs)
+    mb = knobs.get("microbatches", 1) if kind == "train" else 1
+    rules = _rules(mesh, knobs, (B, B // mb))
     fake_run = fake
     dev = trace_device(device)
     plain = device == "cpu"
@@ -282,6 +350,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args) -> dict:
     fake_world(512 if multi else 256)
     device = getattr(args, "device", "cuda")
     mesh = make_production_mesh(multi_pod=multi, device_type=device)
+    if SHAPES[shape_name]["kind"] == "train":
+        B = SHAPES[shape_name]["global_batch"]
+        knobs["microbatches"] = fit_microbatches(
+            _rules(mesh, knobs, (B,)), B, knobs["microbatches"])
     n_chips = mesh.size()
     a = trace_cell(cfg, shape_name, mesh, knobs, device=device)
     flops = float(a["flops"])

@@ -7,10 +7,11 @@ until it is called.
 
 The production mesh is the reference's 256 devices a pod and 512 across
 two pods, laid out for H100s: the ``model`` axis is 8 wide, the cards of
-one NVLink node, and ``data`` takes the rest ((32, 8); (2, 16, 8) with a
-``pod`` axis). The reference's 16 x 16 is a TPU v5e pod's torus
-(``launch/mesh.py``); a 16-wide model axis of H100s would cross nodes, so
-its tensor-parallel collectives would leave NVLink. ``fake_world`` brings
+one NVLink node, and ``data`` takes the rest of a pod: (32, 8), and two
+such pods on a ``pod`` axis, (2, 32, 8). The reference's 16 x 16 is a TPU
+v5e pod's torus and its multi-pod mesh (2, 16, 16) (``launch/mesh.py``); a
+16-wide model axis of H100s would cross nodes, so its tensor-parallel
+collectives would leave NVLink. ``fake_world`` brings
 up torch's ``fake`` process group of any size in this one process, so the
 dry run (``launch/dryrun.py``) can build that mesh and trace one rank's
 step without the cards.
@@ -52,7 +53,7 @@ def make_mesh(shape, axes, *, devices=None, device_type: str = "cuda"
 
 
 PRODUCTION_SHAPES = {False: ((32, 8), ("data", "model")),
-                     True: ((2, 16, 8), ("pod", "data", "model"))}
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
 
 
 def fake_world(n: int, rank: int = 0) -> None:

@@ -535,9 +535,10 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
     of both kinds runs through the flash-decode kernel: a full cache with
     ``pos + 1`` valid rows, a ring with its filled slots; with ``donate``
     the new row goes into ``cache`` itself. Mamba and RG-LRU layers step
-    their recurrence in plain PyTorch and return new states. The residual
-    is constrained as on the sequence path (the reference leaves it to its
-    partitioner, which keeps it so)."""
+    their recurrence in plain PyTorch and return new states. The residual,
+    query and new key and value rows are constrained as on the sequence
+    path (the reference leaves them to its partitioner, which keeps them
+    so)."""
     h = L.rms_norm(x, w["norm1"], eps=cfg.norm_eps)
     if kind == "mamba":    # no channel mix: the block is the whole layer
         delta, cache = SSM.mamba_step(h, cache, w["mamba"],
@@ -545,6 +546,11 @@ def _apply_block_decode(kind: str, w: dict, x, cache: dict, pos: int,
         return shard_act(x + delta, "residual"), cache
     if kind in ("global", "local"):
         q, k, v = _qkv(h, w["attn"], cfg, kind, pos)
+        # the token's batch stays on the data axes, as the cache's does:
+        # a query replicated there gathers every rank's cache
+        q = shard_act(q, "heads")
+        k = shard_act(k, "kv_heads")
+        v = shard_act(v, "kv_heads")
         if kind == "local" and cfg.window:
             cache = L.cache_update_ring(cache, k, v, pos, donate)
             valid = L.ring_valid_len(pos, cache["k"].shape[1])

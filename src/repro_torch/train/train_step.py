@@ -50,30 +50,37 @@ def _chunk_xent(hidden_c: torch.Tensor, head32: torch.Tensor,
 
 def _chunk_xent_sharded(hidden_c, head32, labels_c):
     """``_chunk_xent`` on local shards, the logits in the reference's
-    ``"logits"`` layout (``act_spec``: batch on the data axes, vocabulary
-    on the model axis where it divides it): each rank's logits of its rows and vocabulary slice; the row
-    maximum, the sum of exponentials and the gold logit reduced over the
-    model axis (a max and two sums of (rows, chunk) values), so no rank
-    holds a row's whole vocabulary. Returns the loss sum, a partial sum
-    over the data axes."""
+    ``"logits"`` layout (``act_spec``: batch on the data axes; under
+    sequence parallelism the chunk's positions on the model axis, else the
+    vocabulary there where it divides it): each rank's logits of its rows
+    and vocabulary slice; a sliced vocabulary's row maximum, sum of
+    exponentials and gold logit reduced over the model axis (a max and two
+    sums of (rows, chunk) values), so no rank holds a row's whole
+    vocabulary. Returns the loss sum, a partial sum over the axes that
+    shard the rows."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = _local.mesh_of((hidden_c, head32, labels_c))
     md = _local.model_dim(mesh)
     hidden_c, head32, labels_c = (_local.as_dtensor(t, mesh)
                                   for t in (hidden_c, head32, labels_c))
-    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and m != md
-            else Replicate() for m, p in enumerate(hidden_c.placements)]
     from ..distributed.sharding import act_spec, current_rules
     V = head32.shape[1]
     rules = current_rules()
     spec = act_spec((hidden_c.shape[0], hidden_c.shape[1], V), "logits",
                     rules) if rules is not None else None
+    seq = md is not None and spec is not None and spec[1] is not None
+    rows = [Shard(1) if m == md and seq
+            else Shard(0) if isinstance(p, Shard) and p.dim == 0 and m != md
+            else Replicate() for m, p in enumerate(hidden_c.placements)]
     vocab = [Shard(1) if m == md and spec is not None and spec[2] is not None
              else Replicate() for m in range(mesh.ndim)]
     grad_rows = [Partial() if m == md and vocab[m] != Replicate() else p
                  for m, p in enumerate(rows)]
+    # each rank's rows give a partial sum of the head's gradient
+    grad_vocab = [Partial() if isinstance(r, Shard) else p
+                  for r, p in zip(rows, vocab)]
     h = _local.local_of(hidden_c, rows, grad_rows)
-    w = _local.local_of(head32, vocab)
+    w = _local.local_of(head32, vocab, grad_vocab)
     y = _local.local_of(labels_c, rows)
     logits = h.to(torch.float32) @ w                     # (b, c, V_local)
     split = md is not None and vocab[md] != Replicate()
@@ -93,7 +100,7 @@ def _chunk_xent_sharded(hidden_c, head32, labels_c):
     hit = (y - v0)[..., None] == torch.arange(w.shape[1], device=logits.device)
     gold = over_vocab(torch.sum(torch.where(hit, logits, 0.0), dim=-1), "sum")
     part = torch.sum(lse - gold)
-    pl = [Partial() if p == Shard(0) else Replicate() for p in rows]
+    pl = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
     return _local.wrap(part, mesh, pl, ())
 
 

@@ -373,7 +373,7 @@ def test_production_meshes():
     single = M.make_production_mesh(device_type="cpu")
     multi = M.make_production_mesh(multi_pod=True, device_type="cpu")
     assert M.mesh_info(single) == {"shape": [32, 8], "axes": ["data", "model"]}
-    assert M.mesh_info(multi) == {"shape": [2, 16, 8],
+    assert M.mesh_info(multi) == {"shape": [2, 32, 8],
                                   "axes": ["pod", "data", "model"]}
 
 

@@ -448,3 +448,104 @@ class TestLockWitness:
         assert {"store.py", "codec_sched.py", "chunkstore.py",
                 "peer_exchange.py"} <= files
         assert rep["edges"], rep
+
+
+class TestWitnessBookkeeping:
+    """A try or timed acquire that fails records no edge; one that
+    succeeds records its edge from each lock the thread holds."""
+
+    def test_a_try_acquire_records_once_it_has_the_lock(self):
+        w = lock_witness.LockWitness(path_filter=lambda fn: False)
+        a = lock_witness._WitnessLock(threading.Lock(), "a.py:1", w)
+        b = lock_witness._WitnessLock(threading.Lock(), "b.py:1", w)
+        b._real.acquire()                      # b taken elsewhere
+        with a:
+            assert not b.acquire(blocking=False)
+            assert not b.acquire(timeout=0.01)
+        assert w.edges == {}
+        b._real.release()
+        with a:
+            assert b.acquire(blocking=False)
+            b.release()
+        assert set(w.edges) == {("a.py:1", "b.py:1")}
+
+
+def _scenario_delta(tmp_path):
+    rng = np.random.default_rng(0)
+    store = CheckpointStore(str(tmp_path / "ckpt"), mode="delta")
+    state = {"w": torch.from_numpy(
+        rng.normal(size=(64, 64)).astype(np.float32))}
+    store.save(1, state)
+    store.restore({"w": torch.zeros(64, 64)})
+
+
+def _scenario_urgent(tmp_path):
+    g = torch.Generator().manual_seed(0)
+    state = {"params": {"w": torch.randn(96, 256, generator=g).to(
+                 torch.bfloat16)},
+             "opt": {"mu": {"w": torch.randn(96, 256, generator=g)}},
+             "step": 3}
+    store = CheckpointStore(str(tmp_path / "store"), chunk_size=4096)
+    snap = sharded.extract_snapshot(
+        state, step=3, digest_chunk=store.urgent_digest_chunk)
+    store.save_snapshot(snap, kind="termination")
+    exchange = FleetPeerExchange(str(tmp_path / "fabric"), 3)
+    try:
+        hashes = [h for h, _p in store.pool.all_chunks()]
+        exchange.seed_from(0, store.pool, hashes, budget_bytes=1 << 30)
+    finally:
+        exchange.close()
+
+
+def _scenario_scheduler(tmp_path):
+    s = CodecScheduler(max_workers=2)
+    futs = [s.submit(PERIODIC, lambda i=i: i * i) for i in range(8)]
+    [f.result(timeout=10) for f in futs]
+    s.shutdown(wait=True, timeout=10.0)
+
+
+def _scenario_abba(tmp_path):
+    from repro_torch.checkpoint import chunkstore
+    a = chunkstore.SaveLegs()._lock
+    b = chunkstore.ChunkWrites(None, set())._lock
+    with a:
+        with b:
+            pass
+    with b:
+        with a:
+            pass
+
+
+@pytest.mark.parametrize("scenario", [_scenario_delta, _scenario_urgent,
+                                      _scenario_scheduler, _scenario_abba],
+                         ids=lambda f: f.__name__[len("_scenario_"):])
+def test_edges_and_inversions_match_the_reference_witness(tmp_path,
+                                                          monkeypatch,
+                                                          scenario):
+    """The reference's witness (recording after it has the lock) stacked
+    over the port's, both watching the port's locks, on the same run: the
+    same edges and inversions (``abba`` takes two of the urgent save's
+    locks in both orders)."""
+    from repro.analysis import lock_witness as ref_witness
+    port_w = lock_witness.LockWitness()
+    port_w.install()
+    ref_w = ref_witness.LockWitness(path_filter=lambda fn: (
+        "/repro_torch/" in fn.replace(os.sep, "/")
+        and not fn.endswith("lock_witness.py")))
+    ref_w.install()
+    try:
+        codec_sched._reset_for_tests()
+        monkeypatch.setattr(hostcopy, "STAGING", hostcopy.PinnedStaging(
+            alloc=lambda n: torch.empty(n, dtype=torch.uint8)))
+        scenario(tmp_path)
+    finally:
+        ref_w.uninstall()
+        port_w.uninstall()
+        codec_sched._reset_for_tests()
+    assert port_w.sites
+    assert set(port_w.edges) == set(ref_w.edges)
+    assert len(port_w.inversions()) == len(ref_w.inversions())
+    if scenario is _scenario_abba:
+        assert len(port_w.inversions()) == 1
+    if scenario is _scenario_delta:
+        assert ("store.py:169", "codec_sched.py:96") in port_w.edges
