@@ -22,6 +22,10 @@ local shard.
   ``use_sharding_rules(...)``; without rules, or for a plain tensor, it is a
   no-op; a ``DTensor`` is redistributed to the spec, and so is its
   gradient.
+
+* **FSDP at use** — ``gather_for_use(tree)`` gathers a period's weights
+  over the data axes before its products, and their gradients return
+  reduce-scattered to the weights' own sharding.
 """
 
 from __future__ import annotations
@@ -118,6 +122,19 @@ def use_sharding_rules(rules: ShardingRules | None):
 
 def current_rules() -> ShardingRules | None:
     return _RULES.get()
+
+
+def keep_rules(fn):
+    """``fn`` run under the sharding rules installed now, wherever it is
+    called. A checkpointed function is recomputed in backward, and for a
+    CUDA tensor backward runs in the autograd engine's own thread, where
+    the context's rules are not set."""
+    rules = _RULES.get()
+
+    def run(*args, **kwargs):
+        with use_sharding_rules(rules):
+            return fn(*args, **kwargs)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +282,32 @@ class _Constrain(torch.autograd.Function):
         return grad.redistribute(ctx.mesh, ctx.placements), None, None
 
 
+class _GatherForUse(torch.autograd.Function):
+    """A weight gathered over the data mesh dims ``data`` for use. Its
+    gradient goes back to the weight's placements in two steps: first on
+    the other mesh dims (a replicated gradient sliced to the weight's TP
+    shard, a partial one reduced over the model axis), then over the data
+    axes, so the reduce-scatter there moves this rank's TP shard only, as
+    the reference's gradient reduction over the data axes does."""
+
+    @staticmethod
+    def forward(ctx, x, placements_, data):
+        ctx.mesh, ctx.placements, ctx.data = x.device_mesh, tuple(x.placements), data
+        return x.redistribute(x.device_mesh, placements_)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def alone(p):     # no other mesh dim shards this tensor dim
+            return sum(q.is_shard() and q.dim == p.dim
+                       for q in ctx.placements) == 1
+        first = tuple(g if m in ctx.data or (p.is_shard() and not alone(p))
+                      else p for m, (g, p) in
+                      enumerate(zip(grad.placements, ctx.placements)))
+        if first != tuple(grad.placements):
+            grad = grad.redistribute(ctx.mesh, first)
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
 def _constrain(x, spec: Spec, rules: ShardingRules):
     return _Constrain.apply(x, rules.mesh, placements(spec, rules.mesh))
 
@@ -275,6 +318,52 @@ def shard_act(x, name: str):
         return x
     spec = act_spec(tuple(x.shape), name, r)
     return x if spec is None else _constrain(x, spec, r)
+
+
+def reduce_partial(x):
+    """``x`` with its partial sums reduced (each ``Partial`` placement
+    replicated), and its gradient too: the all-reduce that the reference's
+    compiled cells put between a row-parallel product and the
+    column-parallel one that reads it (Mamba's ``x_proj``, then Δ's
+    ``dt_proj``), where DTensor may instead gather the next weight over the
+    model axis and compute its whole output on every rank. Without rules,
+    or for a plain tensor, ``x`` as it is."""
+    if _RULES.get() is None or not isinstance(x, DTensor):
+        return x
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if pl == tuple(x.placements):
+        return x
+    return _Constrain.apply(x, x.device_mesh, pl)
+
+
+def gather_for_use(tree, dims=None):
+    """FSDP's all-gather at use (the reference's rules: weights and moments
+    stored sharded over the data axes, gathered where they are used): each
+    DTensor leaf of ``tree`` (a dict of tensors) with its shards on the data
+    axes replicated, its TP and EP shards kept; with ``dims``, only shards
+    of those tensor dims (a segment's stacked leaves sharded over their
+    repeats dim, gathered whole before its loop, as the reference's
+    partitioner gathers them before its scan). The gradient goes back to
+    the leaf's own placements: the data ranks' partial sums
+    reduce-scattered (ZeRO-3). Without rules, without FSDP, or for a plain
+    tensor, a leaf is returned as it is; nothing is stored gathered."""
+    r = _RULES.get()
+    if r is None or not (r.fsdp or r.pure_fsdp):
+        return tree
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if not isinstance(x, DTensor):
+            return x
+        data = {i for i, n in enumerate(x.device_mesh.mesh_dim_names)
+                if n in r.data_axes}
+        pl = tuple(Replicate() if i in data and p.is_shard()
+                   and (dims is None or p.dim in dims) else p
+                   for i, p in enumerate(x.placements))
+        return x if pl == tuple(x.placements) \
+            else _GatherForUse.apply(x, pl, data)
+    return one(tree)
 
 
 def batch_spec(rules: ShardingRules, batch: int) -> Spec:

@@ -63,9 +63,16 @@ def wrap(local: torch.Tensor, mesh, placements, shape) -> DTensor:
 
 
 def local_of(x: DTensor, placements, grad_placements=None) -> torch.Tensor:
-    return x.redistribute(x.device_mesh, tuple(placements)).to_local(
-        grad_placements=None if grad_placements is None
-        else tuple(grad_placements))
+    """``x``'s local shard in ``placements``, its gradient taken as
+    ``grad_placements`` (by default the same). Where ``x`` already lies so,
+    the gradient reaches ``x`` as it is given: a partial sum stays partial
+    until whatever made ``x`` reduces it (an FSDP gather's reduce-scatter),
+    where a redistribute to the same placements would all-reduce it."""
+    pl = tuple(placements)
+    if tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    return x.to_local(grad_placements=None if grad_placements is None
+                      else tuple(grad_placements))
 
 
 def for_split(x, dim: int, outer: int):
@@ -125,6 +132,20 @@ def merge_heads(o):
     if isinstance(o, DTensor):
         return _MergeLast.apply(o)
     return o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1])
+
+
+def whole_rows(x):
+    """``x`` (B, S, D) with its sequence dim gathered where a mesh dim
+    shards it (sequence parallelism), as Megatron gathers it before the
+    column-parallel products; its gradient is reduce-scattered back. A
+    product flattens (B, S) into its rows, which some torch releases (2.11)
+    refuse for a sharded S. Anything else is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
 
 
 def keep_shards(x: DTensor, keep) -> list:
@@ -211,7 +232,9 @@ def attention(fn, q, k, v):
 def selective_scan(op, u, delta, A, B, C, D):
     """The selective-scan op on local shards: channels (DI) on the model
     axis where they divide it; B and C, read by every channel, replicated
-    there (their gradient a partial sum). Returns (y, h_last) DTensors."""
+    there (their gradient a partial sum). A and D, the same on every rank
+    of a batch-sharded dim, take a partial sum of the rows' gradients
+    there. Returns (y, h_last) DTensors."""
     mesh = mesh_of((u, delta, A, B, C, D))
     u, delta, A, B, C, D = (as_dtensor(t, mesh) for t in (u, delta, A, B, C, D))
     DI = u.shape[2]
@@ -220,9 +243,11 @@ def selective_scan(op, u, delta, A, B, C, D):
     bc = [Shard(0) if p == Shard(0) else Replicate() for p in up]
     bc_grad = [Shard(0) if p == Shard(0) else Partial() if p == Shard(2)
                else Replicate() for p in up]
-    y, h = op(local_of(u, up), local_of(delta, up), local_of(A, chan),
+    chan_grad = [Partial() if p == Shard(0) else c for p, c in zip(up, chan)]
+    y, h = op(local_of(u, up), local_of(delta, up),
+              local_of(A, chan, chan_grad),
               local_of(B, bc, bc_grad), local_of(C, bc, bc_grad),
-              local_of(D, chan))
+              local_of(D, chan, chan_grad))
     hp = [Shard(1) if p == Shard(2) else p for p in up]
     return (wrap(y, mesh, up, u.shape),
             wrap(h, mesh, hp, (u.shape[0], DI, A.shape[1])))

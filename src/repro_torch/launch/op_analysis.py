@@ -33,7 +33,10 @@ Conventions, the reference's (``hlo_analysis.py``) where they carry over:
 * Collective bytes are the operand bytes of the functional collectives,
   keyed by the reference's kind names, each collective counted once (its
   ``wait_tensor`` is skipped, as the reference skips ``-done``); the
-  counts are kept by kind as well. They also count as bytes.
+  counts are kept by kind as well. They also count as bytes. DTensor's
+  shard-dim all-to-all (``_dtensor.shard_dim_alltoall``, a shard moved
+  between tensor dims on a CUDA mesh) is an all-to-all; on a CPU mesh
+  DTensor runs it as an all-gather and a chunk, and it counts as that.
 
 Memory: the mode tracks each storage that an op creates, from the op to
 the storage's release, beside the arguments' storages registered before
@@ -64,6 +67,9 @@ _COLL_OPS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
              "reduce_scatter_tensor": "reduce-scatter",
              "reduce_scatter_tensor_coalesced": "reduce-scatter",
              "all_to_all_single": "all-to-all"}
+# DTensor's own all-to-all (``torch.ops._dtensor``), a shard moved from one
+# tensor dim to another on a CUDA mesh
+_SHARD_ALL_TO_ALL = "shard_dim_alltoall"
 
 # ops that move no data: allocation, metadata, and the counterparts of the
 # reference's _SKIP_OPS (constant, iota, rng-bit-generator); so do the
@@ -271,9 +277,14 @@ class OpAnalysis(TorchDispatchMode):
         out = func(*args, **kwargs)
         name = func._opname
         ns = func.namespace
-        if ns == "_c10d_functional" and name in _COLL_OPS:
+        shard_a2a = ns == "_dtensor" and name == _SHARD_ALL_TO_ALL
+        if shard_a2a and self._fake_mode is not None:
+            # its fake implementation returns a view of every rank's copy
+            # concatenated: an output of its own size, as the op gives
+            out = out.clone()
+        if (ns == "_c10d_functional" and name in _COLL_OPS) or shard_a2a:
             n = sum(_nbytes(t) for t in ins)
-            self.collectives.append((_COLL_OPS[name], n))
+            self.collectives.append((_COLL_OPS.get(name, "all-to-all"), n))
             self.bytes += n + sum(_nbytes(t) for t in _tensors(out))
         elif name in _SKIP or ns in ("prim", "_c10d_functional") \
                 or _is_view(func):

@@ -241,8 +241,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     S = x.shape[1]
     out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(K):                  # K is 4: unrolled shifted adds
-        shift = K - 1 - i
-        xi = F.pad(x, (0, 0, shift, 0))[:, :S]
+        n = max(S - (K - 1 - i), 0)     # the rows that reach back into x
+        # a slice and a concatenation, not F.pad: DTensor's padding
+        # strategy fails in some torch releases (2.11)
+        xi = torch.cat([torch.zeros_like(x[:, :S - n]), x[:, :n]], dim=1)
         out = out + xi.to(torch.float32) * w[:, i].to(torch.float32)
     return out.to(x.dtype)
 

@@ -126,9 +126,9 @@ def _moe_block_dense_sharded(x, w: dict, cfg: MoEConfig, *, act: str,
     B, S, D = x.shape
     mesh = x.device_mesh
     md = _tp_dim(mesh)
-    w_l, e0, e1, partial = _expert_shards(w, mesh)
     pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and m != md
           else Replicate() for m, p in enumerate(x.placements)]
+    w_l, e0, e1, partial = _expert_shards(w, mesh, pl)
     xl = _local.local_of(x, pl)
     Bl = xl.shape[0]
     xt = xl.reshape(Bl * S, D)
@@ -228,14 +228,16 @@ def _tp_dim(mesh) -> int | None:
     return None if r is not None and r.model_in_dp else _local.model_dim(mesh)
 
 
-def _expert_shards(w: dict, mesh, experts_on_model: bool = False
+def _expert_shards(w: dict, mesh, tokens, experts_on_model: bool = False
                    ) -> tuple[dict, int, int, bool]:
     """The expert and shared weights as local tensors with their model-axis
     shards kept (FSDP shards gathered), the experts split over the model
     axis where ``experts_on_model``: (local tree, e0, e1, partial): experts
     ``e0 .. e1 - 1`` live here; ``partial`` when each rank's output is a
     partial sum over the model axis (experts or their hidden width split
-    across it)."""
+    across it). ``tokens``: the placements of the tokens they run on; a
+    weight's gradient is a partial sum over the mesh dims that split
+    them."""
     md = _tp_dim(mesh)
     out = {}
     e0, e1 = 0, None
@@ -254,7 +256,7 @@ def _expert_shards(w: dict, mesh, experts_on_model: bool = False
                   for m, p in enumerate(_local.keep_shards(t, keep))]
             if group == "experts" and experts_on_model:
                 pl[md] = Shard(0)
-            local = _local.local_of(t, pl)
+            local = _local.local_of(t, pl, _over_tokens(pl, tokens))
             out[group][name] = local
             if md is not None and isinstance(pl[md], Shard):
                 partial = True
@@ -264,6 +266,13 @@ def _expert_shards(w: dict, mesh, experts_on_model: bool = False
         if group == "experts" and e1 is None:
             e1 = next(iter(out[group].values())).shape[0]
     return out, e0, e1, partial
+
+
+def _over_tokens(pl, tokens) -> list:
+    """Gradient placements of a weight placed ``pl`` that runs on tokens
+    placed ``tokens``: a partial sum over each mesh dim that shards them."""
+    return [Partial() if isinstance(t, Shard) else p
+            for p, t in zip(pl, tokens)]
 
 
 def _moe_block_sharded(x, w: dict, cfg: MoEConfig, G: int, *, act: str,
@@ -288,16 +297,17 @@ def _moe_block_sharded(x, w: dict, cfg: MoEConfig, G: int, *, act: str,
     rules = current_rules()
     ep = (rules is not None and md is not None and act_spec(
         (G, cfg.n_experts, 1, D), "moe_experts", rules)[1] is not None)
-    w_l, e0, e1, partial = _expert_shards(w, mesh, experts_on_model=ep)
     pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and m != md
           else Replicate() for m, p in enumerate(xg.placements)]
+    w_l, e0, e1, partial = _expert_shards(w, mesh, pl, experts_on_model=ep)
     grad_pl = [Partial() if m == md and partial else p
                for m, p in enumerate(pl)]
     xl = _local.local_of(xg, pl, grad_pl)
     router = _local.local_of(_local.as_dtensor(w["router"], mesh),
                              [Replicate()] * mesh.ndim,
-                             [Partial() if m == md else Replicate()
-                              for m in range(mesh.ndim)])
+                             [Partial() if m == md else g for m, g in
+                              enumerate(_over_tokens([Replicate()] * mesh.ndim,
+                                                     pl))])
     logits = xl.to(torch.float32) @ router.to(torch.float32)
     slot, gate, aux, C = top_k_routing(logits, cfg)
     Gl, Tg = xl.shape[:2]

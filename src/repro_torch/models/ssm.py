@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import reduce_partial
 from ..kernels.ssm_scan import selective_scan
 from .config import SSMConfig
 from .layers import causal_conv1d, conv_state_update
@@ -45,7 +46,7 @@ def _project(x: torch.Tensor, w: dict, cfg: SSMConfig, d_model: int):
     u, gate = (x @ w["in_proj"]).chunk(2, dim=-1)                 # (B,S,DI)
     u = causal_conv1d(u, w["conv"]) if x.shape[1] > 1 else u      # seq path conv
     u = F.silu(u)
-    dt, Bm, Cm = split_xdbc(u @ w["x_proj"], cfg, d_model)
+    dt, Bm, Cm = split_xdbc(reduce_partial(u @ w["x_proj"]), cfg, d_model)
     delta = F.softplus(dt @ w["dt_proj"] + w["dt_bias"])          # (B,S,DI)
     return u, gate, delta, Bm, Cm
 
@@ -76,7 +77,8 @@ def mamba_step(x_t: torch.Tensor, state: dict, w: dict, cfg: SSMConfig
     u, gate = (x_t @ w["in_proj"]).chunk(2, dim=-1)               # (B,1,DI)
     u_conv, conv_state = conv_state_update(state["conv"], u, w["conv"])
     u_act = F.silu(u_conv)[:, 0]                                  # (B,DI)
-    dt, Bm, Cm = split_xdbc(u_act @ w["x_proj"], cfg, x_t.shape[-1])
+    dt, Bm, Cm = split_xdbc(reduce_partial(u_act @ w["x_proj"]), cfg,
+                            x_t.shape[-1])
     delta = F.softplus(dt @ w["dt_proj"] + w["dt_bias"])          # (B,DI)
     y, ssm_state = selective_scan_step(state["ssm"], u_act, delta, A, Bm, Cm,
                                        w["D"])

@@ -32,12 +32,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import (checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.sharding import shard_act
+from ..distributed.sharding import (addressable_shard_spans, gather_for_use,
+                                    keep_rules, reduce_partial, shard_act)
 from ..kernels import _local
 from ..kernels.decode_attention import flash_decode
 from ..kernels.flash_attention import flash_attention
@@ -225,6 +226,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 
 def _qkv(x, w, cfg: ModelConfig, kind: str, positions):
     """Projected, rotated q (B,S,H,hd) and k, v (B,S,KV,hd)."""
+    x = _local.whole_rows(x)
     q = _local.split_heads(x @ w["wq"], cfg.n_heads)
     k = _local.split_heads(x @ w["wk"], cfg.n_kv_heads)
     v = _local.split_heads(x @ w["wv"], cfg.n_kv_heads)
@@ -251,7 +253,8 @@ def _mamba_seq_with_cache(x, w, scfg: SSMConfig):
     u_raw, gate = (x @ w["in_proj"]).chunk(2, dim=-1)
     conv_state = _conv_window(u_raw, scfg.d_conv)
     u = F.silu(L.causal_conv1d(u_raw, w["conv"]))
-    dt, Bm, Cm = SSM.split_xdbc(u @ w["x_proj"], scfg, x.shape[-1])
+    dt, Bm, Cm = SSM.split_xdbc(reduce_partial(u @ w["x_proj"]), scfg,
+                                x.shape[-1])
     delta = F.softplus(dt @ w["dt_proj"] + w["dt_bias"])
     y, h_last = ssm_scan(u, delta, A, Bm, Cm, w["D"])
     y = y * F.silu(gate)
@@ -271,7 +274,8 @@ def _channel_mix(x, w: dict, cfg: ModelConfig, *, decode: bool = False):
     """MLP or MoE residual branch. Returns (delta, aux loss or None). A
     decode step runs the exact, dropless MoE."""
     if "moe" not in w:
-        return L.mlp(x, w["mlp"], act=cfg.act, gated=cfg.mlp_gated), None
+        return L.mlp(_local.whole_rows(x), w["mlp"], act=cfg.act,
+                     gated=cfg.mlp_gated), None
     if decode:
         return MOE.moe_block_dense(x, w["moe"], cfg.moe, act=cfg.act,
                                    gated=cfg.mlp_gated), None
@@ -356,29 +360,41 @@ def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor
 
 
 def _embed_sharded(table, inputs):
-    """The lookup on local shards: each rank looks up the ids that fall in
-    its vocabulary rows (the table's shard on the model axis), zeros for
-    the rest, and the rows sum over the model axis (a ``Partial`` result,
-    the reference's one-hot gather under SPMD)."""
+    """The lookup on local shards, as the reference's partitioner runs it.
+    On a mesh dim that shards the table (its vocabulary rows on the model
+    axis; under FSDP its columns on the data axes) each rank takes every id
+    of that dim and looks them up in its own shard: its columns are a shard
+    of the output's last dim, and its rows give zeros for the ids they do
+    not hold, summed over that dim (a ``Partial`` result, the reference's
+    one-hot gather under SPMD). On a dim that replicates the table each
+    rank looks up its own ids. So the table is never gathered, and its
+    gradient is reduced only over the dims that split the ids and
+    replicate the table (the data ranks' partial sums)."""
     mesh = _local.mesh_of((table, inputs))
     table, inputs = _local.as_dtensor(table, mesh), _local.as_dtensor(inputs, mesh)
-    md = _local.model_dim(mesh)
-    tl = _local.local_of(table, _local.keep_shards(table, {0}))
-    il = _local.local_of(inputs, _local.keep_shards(inputs, {0}))
-    V = table.shape[0]
-    sharded = md is not None and isinstance(table.placements[md], Shard) \
-        and table.placements[md].dim == 0 and V % mesh.size(md) == 0
+    ids_pl, out_pl, grad_pl = [], [], []
+    for t, i in zip(table.placements, inputs.placements):
+        batch = isinstance(i, Shard) and i.dim == 0
+        if isinstance(t, Shard):
+            ids_pl.append(Replicate())
+            out_pl.append(Partial() if t.dim == 0 else Shard(inputs.ndim))
+            grad_pl.append(t)
+        else:
+            ids_pl.append(Shard(0) if batch else Replicate())
+            out_pl.append(Shard(0) if batch else Replicate())
+            grad_pl.append(Partial() if batch else Replicate())
+    tl = _local.local_of(table, table.placements, grad_pl)
+    il = _local.local_of(inputs, ids_pl)
+    (region,) = addressable_shard_spans(mesh, table.placements, table.shape)
+    v0, v1 = region[0]
     ids = il.reshape(-1).to(torch.int64)
-    if sharded:
-        v0 = _local.coordinate(mesh, md) * tl.shape[0]
-        hit = (ids >= v0) & (ids < v0 + tl.shape[0])
+    rows = (v0, v1) != (0, table.shape[0])
+    if rows:
+        hit = (ids >= v0) & (ids < v1)
         ids = torch.where(hit, ids - v0, 0)
     x = tl.index_select(0, ids)
-    if sharded:
+    if rows:
         x = x * hit[:, None].to(x.dtype)
-    out_pl = _local.keep_shards(inputs, {0})
-    if sharded:
-        out_pl[md] = Partial()
     return _local.wrap(x.reshape(*il.shape, -1), mesh, out_pl,
                        (*inputs.shape, table.shape[1]))
 
@@ -407,6 +423,9 @@ def _period(seg: Segment, cfg: ModelConfig, positions, *, collect_cache: bool,
     (x, the period's layer params {pos{i}: ...}) -> (x, each layer's aux
     loss or None, each layer's cache or None)."""
     def body(x, layer_params):
+        # FSDP's gather at use: inside the (checkpointed) period, so remat
+        # gathers again in backward, as the reference's scan body does
+        layer_params = gather_for_use(layer_params)
         auxes, caches = [], []
         for i, kind in enumerate(seg.pattern):
             x, aux, cache = _apply_block_seq(
@@ -438,9 +457,11 @@ def _sequence(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: list[dict] = []
     for seg, seg_params in zip(plan_segments(cfg), params["segments"]):
-        body = _period(seg, cfg, positions, collect_cache=collect_cache,
-                       cache_len=cache_len)
+        body = keep_rules(_period(seg, cfg, positions,
+                                  collect_cache=collect_cache,
+                                  cache_len=cache_len))
         per_pos: dict[str, list] = {f"pos{i}": [] for i in range(len(seg.pattern))}
+        seg_params = gather_for_use(seg_params, dims={0})
         for r in range(seg.n_repeats):
             layer_params = {name: _select(sub, r)
                             for name, sub in seg_params.items()}
@@ -477,9 +498,9 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     ``prefill``."""
     x, aux, _ = _sequence(params, cfg, inputs, collect_cache=False,
                           cache_len=None, remat=remat)
-    x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    out = x if return_hidden else shard_act(x @ unembed_weights(params, cfg),
-                                            "logits")
+    x = L.rms_norm(x, gather_for_use(params["final_norm"]), eps=cfg.norm_eps)
+    out = x if return_hidden else shard_act(
+        x @ gather_for_use(unembed_weights(params, cfg)), "logits")
     return out, aux
 
 
@@ -493,8 +514,10 @@ def prefill(params: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     the value is the same, without a (B,S,V) tensor)."""
     x, _aux, caches = _sequence(params, cfg, inputs, collect_cache=True,
                                 cache_len=cache_len)
-    x = L.rms_norm(x[:, -1:], params["final_norm"], eps=cfg.norm_eps)
-    logits = shard_act(x @ unembed_weights(params, cfg), "logits")
+    x = L.rms_norm(x[:, -1:], gather_for_use(params["final_norm"]),
+                   eps=cfg.norm_eps)
+    logits = shard_act(x @ gather_for_use(unembed_weights(params, cfg)),
+                       "logits")
     return logits[:, 0], caches, inputs.shape[1]
 
 
@@ -599,18 +622,20 @@ def decode_step(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     for seg, seg_params, seg_cache in zip(plan_segments(cfg),
                                           params["segments"], caches):
         per_pos: dict[str, list] = {f"pos{i}": [] for i in range(len(seg.pattern))}
+        seg_params = gather_for_use(seg_params, dims={0})
         for r in range(seg.n_repeats):
             for i, kind in enumerate(seg.pattern):
                 view = _select(seg_cache[f"pos{i}"], r)
                 x, c = _apply_block_decode(
-                    kind, _select(seg_params[f"pos{i}"], r), x, view, pos,
-                    cfg, donate)
+                    kind, gather_for_use(_select(seg_params[f"pos{i}"], r)),
+                    x, view, pos, cfg, donate)
                 if donate:
                     _write_back(view, c)
                 else:
                     per_pos[f"pos{i}"].append(c)
         if not donate:
             new_caches.append({name: _stack(cs) for name, cs in per_pos.items()})
-    x = L.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    logits = shard_act(x @ unembed_weights(params, cfg), "logits")
+    x = L.rms_norm(x, gather_for_use(params["final_norm"]), eps=cfg.norm_eps)
+    logits = shard_act(x @ gather_for_use(unembed_weights(params, cfg)),
+                       "logits")
     return logits[:, 0], (caches if donate else new_caches)

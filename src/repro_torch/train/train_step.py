@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ..checkpoint import serialize as ser
 from ..checkpoint.sharded import TensorSpec
 from ..device import resolve_device
+from ..distributed.sharding import keep_rules
 from ..kernels import _local
 from ..models import forward, init_params
 from ..models.config import ModelConfig
@@ -122,8 +123,9 @@ def fused_unembed_xent(hidden: torch.Tensor, head: torch.Tensor,
     labels = labels.to(torch.int64)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = S // n
+    chunk_xent = keep_rules(_chunk_xent)
     for i in range(n):
-        part = checkpoint(_chunk_xent, hidden[:, i * c:(i + 1) * c], head32,
+        part = checkpoint(chunk_xent, hidden[:, i * c:(i + 1) * c], head32,
                           labels[:, i * c:(i + 1) * c], use_reentrant=False,
                           preserve_rng_state=False)
         total = total + part

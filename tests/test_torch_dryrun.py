@@ -78,17 +78,76 @@ FLAGS = ("remat", "microbatches", "fsdp", "seq_parallel", "fused_ce",
 REFERENCE = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import json, sys
+    import json, re, sys
     from types import SimpleNamespace
     import jax
+    import numpy as np
     from repro.configs import ARCH_IDS, SHAPES, get_smoke_config
     from repro.launch import dryrun as D
+    from repro.launch import hlo_analysis as H
     from repro.launch.hlo_analysis import analyze
     from repro.launch.mesh import make_mesh
     cells, knobs, archs, meshes, flag_sets, flags = (json.loads(a)
                                                      for a in sys.argv[1:7])
+    # knobs a cell sets over the common ones, by cell name
+    cell_knobs = json.loads(sys.argv[7]) if len(sys.argv) > 7 else {}
     SHAPES.update(cells)
-    out = {"flops": {}, "memory": {}, "knobs": {},
+
+    def groups(line):
+        # replica groups as device lists: iota form, lists, or pairs
+        m = re.search(r"replica_groups=\\[([\\d,]+)\\]<=\\[([\\d,]+)\\]"
+                      r"(?:T\\(([\\d,]+)\\))?", line)
+        if m:
+            dims = [int(x) for x in m.group(2).split(",")]
+            a = np.arange(int(np.prod(dims))).reshape(dims)
+            if m.group(3):
+                a = a.transpose([int(x) for x in m.group(3).split(",")])
+            return a.reshape([int(x) for x in m.group(1).split(",")]).tolist()
+        m = re.search(r"(?:replica_groups|source_target_pairs)=\\{(.*?)\\}\\}",
+                      line)
+        return [[int(x) for x in g.split(",") if x]
+                for g in re.findall(r"\\{([\\d,]*)", m.group(1) + "}")] \\
+            if m else []
+
+    def axis(gs, tp):
+        # device d sits at (d // tp, d % tp) on the (data, model) mesh
+        data = all(len({d % tp for d in g}) == 1 for g in gs)
+        model = all(len({d // tp for d in g}) == 1 for g in gs)
+        return "data" if data > model else "model" if model > data \\
+            else "other"
+
+    def elements(text):
+        return sum(int(np.prod([int(d) for d in m.split(",") if d]))
+                   for m in re.findall(r"[a-z]+\\d*\\[([\\d,]*)\\]", text))
+
+    def axis_elements(text, tp):
+        # each collective's operand elements by kind and mesh axis, its
+        # while bodies scaled by their trip counts (hlo_analysis's walk)
+        mod = H.HloModule(text)
+        tot = {}
+
+        def walk(name, mult):
+            for op in mod.computations.get(name, []):
+                base = op.opcode[:-6] if op.opcode.endswith("-start") \\
+                    else op.opcode
+                sub = re.search(r"(?:body|to_apply)=%?([\\w.\\-]+)", op.line)
+                if op.opcode == "while":
+                    cond = re.search(r"condition=%?([\\w.\\-]+)", op.line)
+                    walk(sub.group(1), mult * mod.trip_count(cond.group(1)))
+                elif op.opcode == "call":
+                    walk(sub.group(1), mult)
+                elif op.opcode == "conditional":
+                    raise NotImplementedError(op.line)
+                elif base in H._COLL_KINDS:
+                    n = sum(elements(mod._operand_type(name, op, i))
+                            for i in range(len(op.operands)))
+                    k = f"{base}/{axis(groups(op.line), tp)}"
+                    tot[k] = tot.get(k, 0) + n * mult
+        walk(mod.entry or next(iter(mod.computations)), 1)
+        return tot
+
+    out = {"flops": {}, "memory": {}, "knobs": {}, "collectives": {},
+           "collective_counts": {}, "axis_elements": {},
            "defaults": D.ARCH_DEFAULTS}
     for arch in archs:
         for shape in cells:
@@ -96,9 +155,15 @@ REFERENCE = textwrap.dedent("""
                 mesh = make_mesh(m, ("data", "model"),
                                  devices=jax.devices()[:m[0] * m[1]])
                 _, compiled = D.lower_cell(get_smoke_config(arch), shape,
-                                           mesh, knobs)
+                                           mesh, {**knobs,
+                                                  **cell_knobs.get(shape, {})})
                 key = f"{arch}/{shape}/{m[0]}x{m[1]}"
-                out["flops"][key] = analyze(compiled.as_text())["flops"]
+                text = compiled.as_text()
+                a = analyze(text)
+                out["flops"][key] = a["flops"]
+                out["collectives"][key] = a["collectives"]
+                out["collective_counts"][key] = a["collective_counts"]
+                out["axis_elements"][key] = axis_elements(text, m[1])
                 out["memory"][key] = D._mem_dict(compiled)
     for arch in ARCH_IDS:
         for kind in ("train", "prefill", "decode"):
@@ -356,6 +421,27 @@ def test_column_parallel_products_gathered_back_count_one_gather_each():
     assert a["collective_counts"] == {"all-gather": L}
     assert a["collectives"] == {"all-gather": float(L * 8 * (Dm // n) * 4)}
     assert a["flops"] == L * 2 * 8 * Dm * (Dm // n)
+
+
+def test_a_shard_moved_between_dims_is_one_all_to_all_of_its_size():
+    """On a CUDA mesh DTensor moves a shard between tensor dims with its
+    own all-to-all op, whose fake implementation returns a view of every
+    rank's copy concatenated: one all-to-all of the operand's bytes, and
+    an output that holds its own size."""
+    M.fake_world(4)
+    mesh = M.make_mesh((4,), ("data",), device_type="cuda")
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        local = torch.empty(8, 64, device=D.trace_device("cuda"))
+    x = DTensor.from_local(local, mesh, [Shard(0)], run_check=False,
+                           shape=torch.Size((32, 64)), stride=(64, 1))
+    with fake:
+        a = OA.analyze(lambda x: x.redistribute(mesh, [Shard(1)]), x,
+                       fake_mode=fake, device="cuda")
+    assert a["collective_counts"] == {"all-to-all": 1}
+    assert a["collectives"] == {"all-to-all": 8 * 64 * 4.0}
+    assert a["memory"]["output_size_in_bytes"] == 32 * 16 * 4
+    assert a["memory"]["live_bytes"] == 2 * 8 * 64 * 4
 
 
 def test_collective_bytes_has_every_kind():
